@@ -10,10 +10,14 @@ Phases, each printing its seconds:
    git-ignored ``build/``), printing what ``-Xptxas -v`` reports;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
-   by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``), with the op's
-   device time per call (its kernels' summed durations under
-   ``torch.profiler``, its wrapper's preparation included) beside the plain
-   version's, their eager wall times and the least time the card could take;
+   by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
+   T below the largest roll, T = 10 and 1001, B = 1 and 3, K = 64, Gaussian
+   patterns, and twice on the same inputs for bit-identical z), with the
+   op's device time per call (its kernels' summed durations under
+   ``torch.profiler``, its wrapper's preparation included, and kernel by
+   kernel) beside the plain
+   version's, their eager wall times, the least time the card could take
+   and, for sswm, one ``torch.mm`` of the same contraction as a yardstick;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -61,10 +65,11 @@ from nawc_tpu_torch.utils.config import CodecConfig  # noqa: E402
 
 CHECKPOINT = REPO / "checkpoints" / "codec_24k.msgpack"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores (the kernels run f32 FMA on the CUDA cores)
+# outside the tensor cores, TF32 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-Z_TOL = 1e-3       # whiten_correlate z, kernel vs plain
+PEAK_TF32_FLOPS = 495e12
+Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
 PRESENCE_TOL = 1e-3
@@ -138,10 +143,11 @@ def chained_ms(step, x0: torch.Tensor, warmup: int = 2, iters: int = 5) -> float
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """-> (least ms on the card, "bytes" or "operations")."""
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0) -> tuple[float, str]:
+    """-> (least ms on the card, "bytes" or "operations"); `flops` run in
+    f32 on the CUDA cores, `tf32_flops` on the tensor cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -156,8 +162,12 @@ def nvidia_smi_line() -> str:
 def timed_pair(label: str, fn) -> tuple[float, float]:
     """-> (device ms of the op `fn`, device ms of `fn` with the plain
     versions) on the same inputs, the wrapper's own preparation included in
-    both; prints the eager wall times beside them."""
+    both; prints the eager wall times beside them, and the op's device time
+    kernel by kernel."""
     ms, wall = device_ms(fn), wall_ms(fn)
+    calls = 10
+    for e in sorted(device_events(fn, calls), key=lambda e: -e.self_device_time_total):
+        print(f"  {label}: {e.self_device_time_total / 1e3 / calls:.4f} ms per call  {e.key[:90]}")
     with _lib.plain_versions():
         plain_ms, plain_wall = device_ms(fn), wall_ms(fn)
     print(f"{label}: device {ms:.4f} ms per call, plain {plain_ms:.4f} ms; "
@@ -169,10 +179,19 @@ def timed_pair(label: str, fn) -> tuple[float, float]:
 
 def check_sswm(dev) -> dict:
     rec = {}
-    for b, t, w, k in [(16, 376, 367, 16), (3, 77, 130, 16), (8, 250, 450, 60)]:
+    # the main path's shape, two odd shapes, then T below the largest
+    # roll (offsets mod T) and below the statistics' 16 rows, T of a clip
+    # over 5.33 s (the statistics' long-T loop), B = 1 and 3, K = 64 and
+    # Gaussian patterns
+    cases = [(16, 376, 367, 16, "sign"), (3, 77, 130, 16, "sign"), (8, 250, 450, 60, "sign"),
+             (16, 40, 367, 16, "sign"), (5, 10, 367, 16, "sign"), (4, 1001, 367, 16, "sign"),
+             (1, 376, 367, 16, "sign"), (3, 376, 367, 16, "gauss"), (16, 376, 367, 64, "gauss")]
+    for b, t, w, k, kind in cases:
         rng = np.random.default_rng(0)
         r = torch.as_tensor(rng.standard_normal((b, t, w)) * 0.3, dtype=torch.float32, device=dev)
-        p = torch.sign(torch.as_tensor(rng.standard_normal((k, t, w)), dtype=torch.float32, device=dev))
+        p = torch.as_tensor(rng.standard_normal((k, t, w)), dtype=torch.float32, device=dev)
+        if kind == "sign":
+            p = torch.sign(p)
         z_k = sswm.whiten_correlate(r, p, _NULL_OFFSETS)
         with _lib.plain_versions():
             z_p = sswm.whiten_correlate(r, p, _NULL_OFFSETS)
@@ -180,16 +199,28 @@ def check_sswm(dev) -> dict:
         err = float((z_k - z_p).abs().max())
         err_ref = float((z_k - z_ref).abs().max())
         sure = z_p.abs() > BIT_Z_MIN
-        check(err <= Z_TOL, f"sswm {(b, t, w, k)}: |z - plain| {err} > {Z_TOL}")
-        check(bool(((z_k > 0) == (z_p > 0))[sure].all()), f"sswm {(b, t, w, k)}: bits differ")
-        print(f"sswm B,T,W,K={(b, t, w, k)}: max|z - plain| {err:.3g}, "
+        shape = (b, t, w, k, kind)
+        check(err <= Z_TOL, f"sswm {shape}: |z - plain| {err} > {Z_TOL}")
+        check(bool(((z_k > 0) == (z_p > 0))[sure].all()), f"sswm {shape}: bits differ")
+        print(f"sswm B,T,W,K={shape}: max|z - plain| {err:.3g}, "
               f"max|z - reference| {err_ref:.3g}")
-        if (b, t, w, k) == (16, 376, 367, 16):  # the main path's shape: time it
+        if shape == (16, 376, 367, 16, "sign"):  # the main path's shape: time it
+            again = sswm.whiten_correlate(r, p, _NULL_OFFSETS)
+            check(torch.equal(z_k, again), "sswm: two calls on the same inputs differ")
+            print("sswm: two calls give bit-identical z")
             ms, plain_ms = timed_pair("whiten_correlate main shape",
                                       lambda: sswm.whiten_correlate(r, p, _NULL_OFFSETS))
-            bms, by = bound(*sswm.bound_counts(b, t, w, k, 1 + len(_NULL_OFFSETS)))
-            print(f"whiten_correlate bound {bms:.4f} ms ({by})")
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            nv = 1 + len(_NULL_OFFSETS)
+            # yardstick: one torch.mm of the scaled residual (B, T*W) against
+            # the prebuilt rolled stack (T*W, NV*K), f32 without TF32
+            scale, shift = sswm._scale_shift(r)
+            rs = (r * scale - shift).reshape(b, t * w)
+            stack = sswm._pattern_stack(p, _NULL_OFFSETS).reshape(nv * k, t * w).T.contiguous()
+            lib_ms = device_ms(lambda: torch.mm(rs, stack))
+            bms, by = bound(*sswm.bound_counts(b, t, w, k, nv))
+            print(f"whiten_correlate bound {bms:.4f} ms ({by}); library torch.mm {lib_ms:.4f} ms")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms)
     return rec
 
 
@@ -218,7 +249,9 @@ def check_nearest_codebook(dev) -> dict:
         nb, fl = nb + b_, fl + f_
     bms, by = bound(nb, fl)
     print(f"nearest_codebook bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    # no single PyTorch call computes a cosine argmax with first-index ties
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
 
 
 def random_quantizer(cfg: CodecConfig, dev, seed: int) -> ResidualVQ:
@@ -248,7 +281,8 @@ def check_rvq_fused(dev, quantizer, cases, label: str) -> dict:
                                       lambda: rvq_fused.rvq_encode_fused(z, quantizer, strides))
             bms, by = bound(*rvq_fused.bound_counts(b, t, 768, 8, 4096, strides))
             print(f"rvq_encode_fused bound {bms:.4f} ms ({by})")
-            rec = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            rec = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=None)
     return rec
 
 
@@ -376,7 +410,7 @@ def main() -> int:
         groups: dict[str, float] = {}
         for e in kernels_ev:
             kname = e.key.lower()
-            group = ("nawc kernels" if any(k in kname for k in ("whiten_correlate", "nearest_codebook",
+            group = ("nawc kernels" if any(k in kname for k in ("sswm_", "nearest_codebook",
                                                                  "rvq_encode"))
                      else "convolution" if any(k in kname for k in ("conv", "xmma", "implicit_gemm"))
                      else "elementwise" if "elementwise" in kname
@@ -401,7 +435,7 @@ def main() -> int:
             "name": n, "route": "cuda", "source": f"nawc_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[n], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

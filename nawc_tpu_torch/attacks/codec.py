@@ -11,6 +11,7 @@ import torch
 
 from ..codec.api import CodecState
 from ..dsp.resample import resample
+from ..utils.device import resolve_device
 from ..utils.padding import fix_length, pad_to_multiple
 
 
@@ -51,9 +52,10 @@ def layer_ablation(
                    lambda x: codec.decode(codec.encode(x), level_mask=level_mask))
 
 
-def ablation_masks(num_levels: int, device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+def ablation_masks(num_levels: int, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """The reference's mask families: full_all, drop_last_k (k=1..L-1),
     keep_only_i (i=0..L-1)."""
+    device = resolve_device(device)
     masks = {"full_all": torch.ones(num_levels, device=device)}
     for k in range(1, num_levels):
         m = torch.ones(num_levels, device=device)

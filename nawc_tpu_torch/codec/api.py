@@ -15,13 +15,14 @@ TF32 by default, which would break parity with the JAX reference.
 from __future__ import annotations
 
 import dataclasses
-import math
 from pathlib import Path
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..ops.rvq_fused import rvq_encode_fused
+from ..utils import flaxinit, jaxrand
 from ..utils.checkpoint import load_params
 from ..utils.config import CodecConfig
 from ..utils.device import resolve_device
@@ -84,36 +85,45 @@ def _frozen(model: SnacCodec, device: torch.device, cfg: CodecConfig) -> CodecSt
     return CodecState(cfg=cfg, model=model)
 
 
-@torch.no_grad()
-def _init_weights(model: SnacCodec, generator: torch.Generator) -> None:
-    """Random weights drawn like flax's initialisers: LeCun-normal kernels,
-    zero biases, zero Snake ``log_alpha``, fan-in normal codebooks, and the
-    decoder's output conv zero (flax zero-inits it)."""
-    for mod in model.modules():
+def flax_init_tree(model: SnacCodec, seed: int) -> dict:
+    """The flax variables tree (numpy, flax layout) that the JAX package's
+    ``make_codec(jax.random.PRNGKey(seed), cfg)`` initialises for this
+    model's config: LeCun truncated-normal kernels, fan-in normal codebooks,
+    zero biases and Snake ``log_alpha``, and the decoder's output conv zero.
+    Each parameter draws from its own flax key (:mod:`..utils.flaxinit`)."""
+    root = jaxrand.prng_key(seed)
+    params: dict = {}
+    for name, mod in model.named_modules():
+        path = tuple(name.split("."))
         if isinstance(mod, (SameConv1d, SameConvTranspose1d, torch.nn.Linear)):
-            w = mod.weight
-            if isinstance(mod, SameConvTranspose1d):
-                fan_in = w.shape[0] * w.shape[2]
-            else:
-                fan_in = w.shape[1] * (w.shape[2] if w.ndim == 3 else 1)
-            w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
+            ws = mod.weight.shape  # flax keeps every kernel as (k, in, out) or (in, out)
+            shape = ((ws[2], ws[0], ws[1]) if isinstance(mod, SameConvTranspose1d)
+                     else (ws[2], ws[1], ws[0]) if isinstance(mod, SameConv1d) else (ws[1], ws[0]))
+            leaves = {"kernel": np.zeros(shape, np.float32) if path == ("decoder", "Conv_1")
+                      else flaxinit.lecun_normal(flaxinit.param_key(root, path), shape)}
             if mod.bias is not None:
-                mod.bias.zero_()
+                leaves["bias"] = np.zeros(tuple(mod.bias.shape), np.float32)
         elif isinstance(mod, Snake):
-            mod.log_alpha.zero_()
+            leaves = {"log_alpha": np.zeros(tuple(mod.log_alpha.shape), np.float32)}
         elif isinstance(mod, VQLevel):
-            cb = mod.codebook
-            cb.copy_(torch.randn(cb.shape, generator=generator) / math.sqrt(cb.shape[1]))
-    model.decoder.Conv_1.weight.zero_()
+            leaves = {"codebook": flaxinit.fan_in_normal(flaxinit.param_key(root, path),
+                                                         tuple(mod.codebook.shape))}
+        else:
+            continue
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node.update(leaves)
+    return {"params": params}
 
 
 def make_codec(cfg: CodecConfig = CodecConfig(), device: str | torch.device = "cuda",
                seed: int = 0) -> CodecState:
-    """A codec with random weights drawn from `seed` (on the CPU, so that
-    every device gets the same weights)."""
+    """A codec with the random weights of the JAX package's
+    ``make_codec(jax.random.PRNGKey(seed), cfg)``, drawn on the CPU."""
     dev = resolve_device(device)
     model = SnacCodec(cfg)
-    _init_weights(model, torch.Generator().manual_seed(seed))
+    model.load_state_dict(flax_to_state_dict(flax_init_tree(model, seed), model), strict=True)
     return _frozen(model, dev, cfg)
 
 

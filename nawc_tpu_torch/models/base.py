@@ -2,15 +2,20 @@
 
 Batched: every method takes (B, T) waveforms at the watermarker's native
 rate; ``embed(wav, msg) -> marked``, ``detect(wav) -> (presence, bits)``,
-``score(wav, msg=None) -> (B,)``.  Randomness comes from an explicit
-``torch.Generator``.
+``score(wav, msg=None) -> (B,)``.  Random payloads are drawn from a
+``jax.random`` key reproduced by :mod:`..utils.jaxrand`, so that a seed
+gives the JAX package's bits.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Protocol, runtime_checkable
 
+import numpy as np
 import torch
+
+from ..utils import jaxrand
+from ..utils.device import resolve_device
 
 
 @runtime_checkable
@@ -34,12 +39,14 @@ class Watermarker(Protocol):
         ...
 
 
-def random_message(generator: torch.Generator, batch: int, n_bits: int,
-                   device: str | torch.device = "cpu") -> torch.Tensor:
-    """Random payload bits (B, n_bits) int32, drawn on the CPU from
-    `generator` and moved to `device`."""
-    bits = torch.randint(0, 2, (batch, n_bits), generator=generator, dtype=torch.int32)
-    return bits.to(device)
+def random_message(key: np.ndarray, batch: int, n_bits: int,
+                   device: str | torch.device = "cuda") -> torch.Tensor:
+    """Random payload bits (B, n_bits) int32: ``jax.random.bernoulli(key,
+    0.5, (batch, n_bits))`` bit for bit, for a key of
+    :func:`~nawc_tpu_torch.utils.jaxrand.prng_key` or ``fold_in``."""
+    dev = resolve_device(device)
+    bits = jaxrand.bernoulli(key, 0.5, (batch, n_bits)).astype(np.int32)
+    return torch.from_numpy(bits).to(dev)
 
 
 def bit_accuracy(bits: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:

@@ -106,17 +106,13 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-class CudaKernel:
-    """One C entry of the library, with its launch count.
-
-    ``launches`` grows by one for every launch that the CUDA runtime
-    accepted, and nowhere else."""
+class CEntry:
+    """One C entry of the library; calling it raises unless it returns 0."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
 
     def __call__(self, *args) -> None:
@@ -127,7 +123,21 @@ class CudaKernel:
             self._fn = fn
         err = self._fn(*args)
         if err != 0:
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {err}")
+            raise RuntimeError(f"CUDA entry {self.name} failed: cudaError {err}")
+
+
+class CudaKernel(CEntry):
+    """A C entry that launches kernels, with its launch count.
+
+    ``launches`` grows by one for every call whose launches the CUDA runtime
+    accepted, and nowhere else."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        super().__init__(name, symbol, argtypes)
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        super().__call__(*args)
         self.launches += 1
 
 

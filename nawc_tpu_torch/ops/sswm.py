@@ -13,8 +13,10 @@ per-bin scaling (see the JAX module's docstring):
 * :func:`_whiten_correlate_plain` (the JAX package's ``_whiten_correlate_xla``)
   scales r, then contracts it with the stacked pattern variants in one einsum.
   It is the CPU path and the kernel's plain version.
-* The kernel computes the (B, NV, K) variant correlations without building
-  the rolled pattern stack; :func:`_calibrate` turns them into z.
+* The kernel (four launches from one C entry: per-bin statistics, the
+  tiled contraction, a fixed-order reduction, z) reads the raw
+  patterns: the scaled residual has zero time-sum per bin, so centring the
+  patterns changes no correlation.  It never builds the rolled stack.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ from . import _lib
 
 _KERNEL = _lib.register(_lib.CudaKernel(
     "whiten_correlate", "nawc_whiten_correlate",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p],
 ))
-_MAX_VARIANTS = 8  # kMaxVariants in csrc/sswm.cu
+_SCRATCH = _lib.CEntry(
+    "whiten_correlate scratch", "nawc_whiten_correlate_scratch",
+    [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_size_t)],
+)
 
 
 def _center_time(p: torch.Tensor) -> torch.Tensor:
@@ -87,29 +92,28 @@ def _whiten_correlate_plain(
     return _calibrate(torch.einsum("btw,jktw->bjk", rs, pstack))
 
 
-def _correlate_variants_cuda(
+def _whiten_correlate_cuda(
     r: torch.Tensor, p: torch.Tensor, null_offsets: tuple[int, ...]
 ) -> torch.Tensor:
-    """(B, T, W), (K, T, W) -> (B, NV, K) by the kernel."""
+    """(B, T, W), (K, T, W) -> (B, K) z by the kernel."""
     b, t, w = r.shape
     k = p.shape[0]
     if p.shape[1:] != (t, w):
         raise ValueError(f"whiten_correlate: patterns {tuple(p.shape)} do not match r {tuple(r.shape)}")
     offs = (0,) + tuple(int(o) % t for o in null_offsets)
-    if len(offs) > _MAX_VARIANTS:
-        raise ValueError(f"whiten_correlate: at most {_MAX_VARIANTS - 1} null offsets")
     r = r.float().contiguous()
-    scale, shift = _scale_shift(r)
-    scale = scale.contiguous()
-    shift = shift.contiguous()
-    pc = _center_time(p.float()).contiguous()
-    _lib.check_cuda_f32("whiten_correlate", r, scale, shift, pc)
-    out = torch.empty((b, len(offs), k), device=r.device, dtype=torch.float32)
+    p = p.float().contiguous()
+    _lib.check_cuda_f32("whiten_correlate", r, p)
+    z = torch.empty((b, k), device=r.device, dtype=torch.float32)
+    # csrc/sswm.cu refuses (cudaErrorInvalidValue) shapes and rolls beyond its limits
     offs_c = (ctypes.c_int * len(offs))(*offs)
+    floats = ctypes.c_size_t()
     with torch.cuda.device(r.device):
-        _KERNEL(_lib.ptr(r), _lib.ptr(scale), _lib.ptr(shift), _lib.ptr(pc), _lib.ptr(out),
-                b, t, w, k, offs_c, len(offs), _lib.stream(r))
-    return out
+        _SCRATCH(b, t, w, k, len(offs), ctypes.byref(floats))
+        scratch = torch.empty(floats.value, device=r.device, dtype=torch.float32)
+        _KERNEL(_lib.ptr(r), _lib.ptr(p), _lib.ptr(scratch), _lib.ptr(z), b, t, w, k, offs_c,
+                len(offs), _lib.stream(r))
+    return z
 
 
 def whiten_correlate(
@@ -122,23 +126,27 @@ def whiten_correlate(
     Args:
       r: (B, T, W) band residual (log-magnitude minus spectral envelope).
       p: (K, T, W) +-1 PN patterns, already tiled to T frames.
-      null_offsets: frame rolls whose correlations sample the null.
+      null_offsets: frame rolls whose correlations sample the null; on the
+        card at most 7, each taken mod T and at most 224 there.
 
     Returns:
       (B, K) z statistics, ~N(0, 1) per bit on unmarked audio.
     """
     null_offsets = tuple(null_offsets)
     if _lib.use_kernel(r):
-        return _calibrate(_correlate_variants_cuda(r, p, null_offsets))
+        return _whiten_correlate_cuda(r, p, null_offsets)
     return _whiten_correlate_plain(r, p, null_offsets)
 
 
-def bound_counts(b: int, t: int, w: int, k: int, n_variants: int) -> tuple[float, float]:
-    """-> (bytes, flops) that ``whiten_correlate`` needs at these shapes: r,
-    the patterns and z once each; per residual cell a sum and a sum of
-    squares for the per-bin statistics, and NV multiply-adds per
-    (b, k, t, w).  The scaled residual has zero time mean per bin, so
-    centring the patterns changes no correlation and is not counted."""
+def bound_counts(b: int, t: int, w: int, k: int, n_variants: int) -> tuple[float, float, float]:
+    """-> (bytes, f32 flops, TF32 tensor-core flops) that ``whiten_correlate``
+    needs at these shapes: r, the patterns and z once each; per residual cell
+    a sum and a sum of squares for the per-bin statistics (f32); and NV
+    multiply-adds per (b, k, t, w), which the kernel runs on the tensor cores
+    as three TF32 passes (the hi/lo split that keeps f32 accuracy).  The
+    scaled residual has zero time mean per bin, so centring the patterns
+    changes no correlation and is not counted."""
     nbytes = 4.0 * (b * t * w + k * t * w + b * k)
-    flops = 3.0 * b * t * w + 2.0 * n_variants * b * k * t * w
-    return nbytes, flops
+    flops = 3.0 * b * t * w
+    tf32_flops = 3 * 2.0 * n_variants * b * k * t * w
+    return nbytes, flops, tf32_flops

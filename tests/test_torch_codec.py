@@ -4,6 +4,7 @@ clip (recon tolerance 5e-4, as tests/test_codec.py)."""
 
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +14,11 @@ from flax import serialization
 from _torch_port import TINY, assert_codes_match, t, tiny_codecs
 from nawc_tpu.attacks.codec import codec_roundtrip as jax_codec_roundtrip
 from nawc_tpu.codec.api import CodecState as JaxCodecState
+from nawc_tpu.codec.api import make_codec as jax_make_codec
 from nawc_tpu.utils.config import CodecConfig as JaxCodecConfig
 from nawc_tpu_torch.attacks.codec import codec_roundtrip
 from nawc_tpu_torch.codec import load_codec, make_codec
+from nawc_tpu_torch.codec.convert import flax_to_state_dict
 from nawc_tpu_torch.codec.layers import _sin2_periodic
 from nawc_tpu_torch.utils.config import CodecConfig
 
@@ -107,6 +110,20 @@ def test_make_codec_is_seeded_and_frozen():
         assert torch.equal(p, q), n
         assert not p.requires_grad
     assert float(a.model.decoder.Conv_1.weight.abs().max()) == 0.0  # zero-init output conv
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_make_codec_matches_jax_init(seed):
+    """The port's random weights are the JAX package's of the same seed,
+    parameter for parameter, within 1e-6 (flaxinit's erf_inv may round
+    otherwise than XLA's)."""
+    tc = make_codec(CodecConfig(**TINY), device="cpu", seed=seed)
+    jc = jax_make_codec(jax.random.PRNGKey(seed), JaxCodecConfig(**TINY))
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jc.params), tc.model)
+    got = tc.model.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=1e-6, rtol=0, err_msg=k)
 
 
 def test_device_defaults_to_cuda_and_raises_without_it():

@@ -71,13 +71,20 @@ def test_codec_roundtrip_matches(codecs, in_sr):
 def test_layer_ablation_matches(codecs):
     jc, tc = codecs
     wav = (np.random.default_rng(3).normal(size=(1, 5000)) * 0.2).astype(np.float32)
-    jmasks, tmasks = jax_ablation_masks(3), ablation_masks(3)
+    jmasks, tmasks = jax_ablation_masks(3), ablation_masks(3, device="cpu")
     assert list(jmasks) == list(tmasks)
     for name in ("full_all", "drop_last_1", "keep_only_2"):
         np.testing.assert_array_equal(tmasks[name].numpy(), np.asarray(jmasks[name]))
         want = np.asarray(jax_layer_ablation(jc, jnp.asarray(wav), jmasks[name]))
         got = layer_ablation(tc, t(wav), tmasks[name]).numpy()
         np.testing.assert_allclose(got, want, atol=5e-4)
+
+
+def test_ablation_masks_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ablation_masks(3)
 
 
 def test_service_matches_jax():

@@ -17,6 +17,7 @@ from nawc_tpu_torch.utils.config import CodecConfig
 
 pytestmark = pytest.mark.cuda
 _OFFS = (17, 23, 29, 37, 47, 53)
+_Z_TOL = 1e-4  # sswm z against plain: the 3xTF32 split holds it, one TF32 pass would not
 
 
 @pytest.fixture
@@ -45,12 +46,45 @@ def test_whiten_correlate_kernel(dev, shape):
     assert sswm._KERNEL.launches == before + 1
     with _lib.plain_versions():
         want = sswm.whiten_correlate(r, p, _OFFS)
-    assert float((got - want).abs().max()) <= 1e-3
+    assert float((got - want).abs().max()) <= _Z_TOL
     sure = want.abs() > 1e-2
     assert bool(((got > 0) == (want > 0))[sure].all())
 
 
-@pytest.mark.parametrize("n,k,d", [(768, 4096, 8), (3072, 4096, 8), (1001, 300, 5), (64, 128, 32)])
+@pytest.mark.parametrize("b,t,w,k,patterns", [
+    (16, 40, 367, 16, "sign"),    # T below the largest roll: offsets mod T
+    (1, 376, 367, 16, "sign"),
+    (3, 376, 367, 16, "gauss"),
+    (16, 376, 367, 64, "gauss"),  # four k-tiles
+    (20, 20, 9, 3, "gauss"),      # two b-tiles, T and W below one unit
+    (5, 10, 30, 16, "sign"),      # T below the statistics' 16 rows
+    (3, 1, 50, 8, "gauss"),       # T = 1: every roll is 0 and rs is 0
+    (4, 1001, 40, 16, "gauss"),   # T past 512: the statistics' long-T loop
+])
+def test_whiten_correlate_kernel_odd_shapes(dev, b, t, w, k, patterns):
+    rng = np.random.default_rng(b * t + k)
+    r = _g(rng, (b, t, w), dev, 0.3)
+    p = _g(rng, (k, t, w), dev)
+    if patterns == "sign":
+        p = torch.sign(p)
+    got = sswm.whiten_correlate(r, p, _OFFS)
+    with _lib.plain_versions():
+        want = sswm.whiten_correlate(r, p, _OFFS)
+    assert got.shape == want.shape == (b, k)
+    assert float((got - want).abs().max()) <= _Z_TOL
+
+
+def test_whiten_correlate_kernel_is_deterministic(dev):
+    rng = np.random.default_rng(11)
+    r = _g(rng, (16, 376, 367), dev, 0.3)
+    p = _g(rng, (16, 376, 367), dev)
+    a = sswm.whiten_correlate(r, p, _OFFS)
+    b = sswm.whiten_correlate(r, p, _OFFS)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,k,d", [(768, 4096, 8), (3072, 4096, 8), (1001, 300, 5), (64, 128, 32),
+                                   (1, 4096, 8), (1001, 4096, 16)])
 def test_nearest_codebook_kernel(dev, n, k, d):
     rng = np.random.default_rng(n)
     z, cb = _g(rng, (n, d), dev), _g(rng, (k, d), dev)
@@ -96,6 +130,23 @@ def test_rvq_encode_fused_kernel(dev, b, t_lat):
     for w, w_ref in zip(want, rvq_fused.rvq_encode_reference(z, q, strides)):
         assert torch.equal(w, w_ref)
     parity.compare_rvq(got, z, q, strides)
+
+
+def test_nearest_codebook_tie_across_slices_takes_first_index(dev):
+    """Codes 100 and 3000 lie in different slices of the split codebook;
+    equal scores must give 100, as argmax does."""
+    rng = np.random.default_rng(12)
+    cb = _g(rng, (4096, 8), dev)
+    cb[3000] = cb[100]
+    z = cb[100][None, :].repeat(40, 1) * torch.linspace(0.5, 3.0, 40, device=dev)[:, None]
+    assert rvq.nearest_codebook(z, cb).tolist() == [100] * 40
+
+
+def test_nearest_codebook_identical_rows_give_index_zero(dev):
+    rng = np.random.default_rng(13)
+    cb = _g(rng, (1, 8), dev).repeat(4096, 1)
+    z = _g(rng, (300, 8), dev)
+    assert rvq.nearest_codebook(z, cb).tolist() == [0] * 300
 
 
 def test_rvq_encode_fused_repacks_changed_tables(dev):

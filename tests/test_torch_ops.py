@@ -25,7 +25,9 @@ def _case(b, t_, w, k, seed=0):
     return r, p
 
 
-@pytest.mark.parametrize("shape", [(5, 126, 358, 16), (3, 77, 130, 16), (2, 64, 128, 60)])
+# the last two: T below 16 rows and the largest roll, and T past 512
+@pytest.mark.parametrize("shape", [(5, 126, 358, 16), (3, 77, 130, 16), (2, 64, 128, 60),
+                                   (5, 10, 30, 16), (4, 1001, 40, 16)])
 def test_whiten_correlate_matches_pallas_interpret(shape):
     r, p = _case(*shape)
     want = np.asarray(_whiten_correlate_pallas(jnp.asarray(r), jnp.asarray(p), _OFFS, interpret=True))
@@ -46,6 +48,24 @@ def test_whiten_correlate_cancellation_identity():
     a = sswm.whiten_correlate(t(r), t(p), _OFFS).numpy()
     b = sswm.whiten_correlate_reference(t(r), t(p), _OFFS).numpy()
     np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,patterns", [((16, 376, 367, 16), "sign"), ((16, 40, 367, 16), "sign"),
+                                            ((3, 40, 50, 5), "gauss"), ((5, 10, 30, 16), "sign"),
+                                            ((4, 1001, 40, 16), "gauss")])
+def test_raw_patterns_give_the_same_z(shape, patterns):
+    """The kernel reads the raw patterns: the scaled residual has zero
+    time-sum per bin, so the uncentred rolled stack gives the plain z."""
+    r, p = _case(*shape)
+    if patterns == "gauss":
+        p = np.random.default_rng(8).standard_normal(p.shape).astype(np.float32)
+    r, p = t(r), t(p)
+    offs = tuple(o % shape[1] for o in _OFFS)
+    raw = torch.stack([p] + [torch.roll(p, o, dims=-2) for o in offs])
+    scale, shift = sswm._scale_shift(r)
+    z_raw = sswm._calibrate(torch.einsum("btw,jktw->bjk", r * scale - shift, raw))
+    np.testing.assert_allclose(z_raw.numpy(), sswm._whiten_correlate_plain(r, p, _OFFS).numpy(),
+                               atol=1e-5)
 
 
 def test_plain_switch_on_cpu_is_the_plain_version():
@@ -123,8 +143,11 @@ def test_rvq_level_params_layout(codecs):
 
 
 def test_bound_counts_scale_with_the_work():
-    nb, fl = sswm.bound_counts(16, 376, 367, 16, 7)
+    nb, fl, fl_tc = sswm.bound_counts(16, 376, 367, 16, 7)
     assert abs(nb - 17.7e6) < 0.1e6  # r and the patterns dominate
+    cells = 16 * 376 * 367
+    assert fl == 3 * cells  # the per-bin statistics, f32
+    assert fl_tc == 3 * 2 * 7 * 16 * cells  # three TF32 passes of the contraction
     nb2, fl2 = rvq.bound_counts(768, 4096, 8)
     assert fl2 == 2 * 768 * 4096 * 8
     nb3, fl3 = rvq_fused.bound_counts(16, 192, 768, 8, 4096, (4, 2, 1))

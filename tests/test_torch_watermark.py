@@ -14,8 +14,10 @@ from nawc_tpu.models import bit_accuracy as jax_bit_accuracy
 from nawc_tpu.models.spread_spectrum import _freq_smooth as jax_freq_smooth
 from nawc_tpu.models.spread_spectrum import _level_mask as jax_level_mask
 from nawc_tpu.utils.config import SpreadSpectrumConfig as JaxSSCfg
+from nawc_tpu.models import random_message as jax_random_message
 from nawc_tpu_torch.models import SpreadSpectrumWM, available, bit_accuracy, build, random_message
 from nawc_tpu_torch.models.spread_spectrum import _freq_smooth, _level_mask
+from nawc_tpu_torch.utils import jaxrand
 from nawc_tpu_torch.utils.config import SpreadSpectrumConfig
 
 # the flagship of __graft_entry__.py, and the JAX package's default
@@ -112,8 +114,24 @@ def test_registry_and_messages():
     assert isinstance(wm, SpreadSpectrumWM) and wm.seed == 3
     with pytest.raises(KeyError):
         build("nope")
-    g = torch.Generator().manual_seed(0)
-    m = random_message(g, 4, 16)
+    m = random_message(jaxrand.prng_key(0), 4, 16, device="cpu")
     assert m.shape == (4, 16) and m.dtype == torch.int32 and set(m.unique().tolist()) <= {0, 1}
-    assert torch.equal(m, random_message(torch.Generator().manual_seed(0), 4, 16))
+    assert torch.equal(m, random_message(jaxrand.prng_key(0), 4, 16, device="cpu"))
     np.testing.assert_allclose(bit_accuracy(m, m).numpy(), 1.0)
+
+
+@pytest.mark.parametrize("seed,batch,n_bits", [(0, 4, 16), (1, 1, 16), (7, 3, 5), (123456, 16, 32)])
+def test_random_message_is_jaxs(seed, batch, n_bits):
+    want = np.asarray(jax_random_message(jax.random.PRNGKey(seed), batch, n_bits))
+    got = random_message(jaxrand.prng_key(seed), batch, n_bits, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    folded = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    got = random_message(jaxrand.fold_in(jaxrand.prng_key(seed), 3), batch, n_bits, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_random_message(folded, batch, n_bits)))
+
+
+def test_random_message_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        random_message(jaxrand.prng_key(0), 2, 16)
