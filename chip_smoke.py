@@ -6,13 +6,16 @@
 Phases, each printing its seconds:
 
 0. card: name, device count, power limit; exit 1 without a CUDA device;
-1. build: one ``nvcc`` call for ``nawc_tpu_torch/csrc/*.cu`` (into the
-   git-ignored ``build/``), printing what ``-Xptxas -v`` reports;
+1. build: one ``nvcc`` for each ``nawc_tpu_torch/csrc/*.cu``, all started
+   together, linked into the git-ignored ``build/``, printing what
+   ``-Xptxas -v`` reports;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
    T below the largest roll, T = 10 and 1001, B = 1 and 3, K = 64, Gaussian
-   patterns, and twice on the same inputs for bit-identical z), with the
+   patterns, and twice on the same inputs for bit-identical z, and its
+   gradient through the kernel against the plain one; the fused encode also
+   at bench.py's unpadded T' = 188), with the
    op's device time per call (its kernels' summed durations under
    ``torch.profiler``, its wrapper's preparation included, and kernel by
    kernel) beside the plain
@@ -221,7 +224,31 @@ def check_sswm(dev) -> dict:
             print(f"whiten_correlate bound {bms:.4f} ms ({by}); library torch.mm {lib_ms:.4f} ms")
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                        library_ms=lib_ms)
+            check_sswm_gradient(r, p)
     return rec
+
+
+def check_sswm_gradient(r0: torch.Tensor, p0: torch.Tensor) -> None:
+    """d(sum z * w)/dr and /dp through the kernel's route against the plain
+    version's: the kernel's backward is the plain VJP on the same r, p and
+    w, so the two must be equal."""
+    w = torch.as_tensor(np.random.default_rng(3).standard_normal((r0.shape[0], p0.shape[0])),
+                        dtype=torch.float32, device=r0.device)
+
+    def grads():
+        r, p = r0.clone().requires_grad_(True), p0.clone().requires_grad_(True)
+        (sswm.whiten_correlate(r, p, _NULL_OFFSETS) * w).sum().backward()
+        return r.grad, p.grad
+
+    got = grads()
+    with _lib.plain_versions():
+        want = grads()
+    errs = [float((g - h).abs().max()) for g, h in zip(got, want)]
+    print(f"whiten_correlate gradient through the kernel vs plain: max|d/dr| diff {errs[0]:.3g}, "
+          f"max|d/dp| diff {errs[1]:.3g} (scale {float(want[0].abs().max()):.3g}, "
+          f"{float(want[1].abs().max()):.3g})")
+    check(all(torch.equal(g, h) for g, h in zip(got, want)),
+          "whiten_correlate: the kernel's gradient differs from the plain version's")
 
 
 def check_nearest_codebook(dev) -> dict:
@@ -277,6 +304,9 @@ def check_rvq_fused(dev, quantizer, cases, label: str) -> dict:
         print(f"rvq_encode_fused ({label}) B,T={(b, t)}: {mism} of {frames} codes differ "
               f"(all near-ties); max score gap of a differing pick {gap:.3g}")
         if (b, t) == (BATCH, 192):  # the main path's shape: time it
+            again = rvq_fused.rvq_encode_fused(z, quantizer, strides)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  "rvq_encode_fused: two calls on the same inputs differ")
             ms, plain_ms = timed_pair("rvq_encode_fused main shape",
                                       lambda: rvq_fused.rvq_encode_fused(z, quantizer, strides))
             bms, by = bound(*rvq_fused.bound_counts(b, t, 768, 8, 4096, strides))
@@ -317,7 +347,8 @@ def main() -> int:
             "whiten_correlate": check_sswm(dev),
             "nearest_codebook": check_nearest_codebook(dev),
             "rvq_encode_fused": check_rvq_fused(
-                dev, random_quantizer(CodecConfig(), dev, 3), [(BATCH, 192), (3, 100)], "random tables"),
+                dev, random_quantizer(CodecConfig(), dev, 3), [(BATCH, 192), (3, 100), (BATCH, 188)],
+                "random tables"),
         }
 
     with phase("3 weights"):

@@ -21,8 +21,9 @@ _INV_PI = 1.0 / math.pi
 
 def _sin2_periodic(z: torch.Tensor) -> torch.Tensor:
     """sin(z)^2 by range reduction and a 7th-order Taylor polynomial, as the
-    JAX package computes it (its values, not ``torch.sin``'s: max abs error
-    1.6e-4 at |u| = 0.5).  ``torch.round`` rounds half to even, as
+    JAX package computes it (its values, not ``torch.sin``'s: the
+    polynomial's sin is off by at most 1.6e-4 and its square by at most
+    3.1e-4, both at |u| = 0.5).  ``torch.round`` rounds half to even, as
     ``jnp.round`` does."""
     zf = z.float()
     u = zf * _INV_PI

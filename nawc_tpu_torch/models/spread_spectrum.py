@@ -63,20 +63,37 @@ def _tile_patterns(p: torch.Tensor, t: int) -> torch.Tensor:
     return p.repeat(1, reps, 1)[:, :t]
 
 
+def _quantiles(x: torch.Tensor, qs: tuple[float, ...]) -> list[torch.Tensor]:
+    """``jnp.quantile(x, q, axis=-1)`` for each q: one sort, then its default
+    linear interpolation with its float32 position and weights, so any row
+    length works (``torch.quantile`` refuses rows over 2^24 elements).  A
+    row that holds a NaN gives NaN, as in ``jnp.quantile``."""
+    srt = torch.sort(x, dim=-1).values
+    n1 = np.float32(x.shape[-1]) - np.float32(1)
+    has_nan = torch.isnan(srt[..., -1])  # NaNs sort last
+    out = []
+    for q in qs:
+        pos = np.float32(q) * n1
+        lo, hi = np.clip(np.floor(pos), 0, n1), np.clip(np.ceil(pos), 0, n1)
+        w_hi = pos - np.floor(pos)
+        v = srt[..., int(lo)] * float(np.float32(1) - w_hi) + srt[..., int(hi)] * float(w_hi)
+        out.append(torch.where(has_nan, torch.nan, v))
+    return out
+
+
 def _level_mask(band_logmag: torch.Tensor, cfg: SpreadSpectrumConfig) -> torch.Tensor:
     """(..., T, W) band log-magnitude -> soft mask in (0, 1] sparing the
-    loudest bins (``torch.quantile``'s linear interpolation is
-    ``jnp.quantile``'s default)."""
+    loudest bins; the per-clip quantiles are ``jnp.quantile``'s."""
     if cfg.mask_quantile <= 0.0 and cfg.mask_lo_quantile <= 0.0:
         return torch.ones_like(band_logmag)
     flat = band_logmag.reshape(band_logmag.shape[:-2] + (-1,))
+    qs = tuple(q for q in (cfg.mask_quantile, cfg.mask_lo_quantile) if q > 0.0)
+    taus = [tau[..., None, None] for tau in _quantiles(flat, qs)]
     w = torch.ones_like(band_logmag)
     if cfg.mask_quantile > 0.0:
-        tau = torch.quantile(flat, cfg.mask_quantile, dim=-1)[..., None, None]
-        w = w * torch.sigmoid((tau - band_logmag) / cfg.mask_softness)
+        w = w * torch.sigmoid((taus[0] - band_logmag) / cfg.mask_softness)
     if cfg.mask_lo_quantile > 0.0:
-        tau_lo = torch.quantile(flat, cfg.mask_lo_quantile, dim=-1)[..., None, None]
-        w = w * torch.sigmoid((band_logmag - tau_lo) / cfg.mask_softness)
+        w = w * torch.sigmoid((band_logmag - taus[-1]) / cfg.mask_softness)
     return w
 
 

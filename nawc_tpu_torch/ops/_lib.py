@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, under ``build/nawc_tpu_torch/`` at the
-root of the checkout (git-ignored), at first use, and loaded with
-``ctypes``.  No PyTorch headers are compiled, so the build takes seconds.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, under ``build/nawc_tpu_torch/`` at the root of the checkout
+(git-ignored), at first use, and loaded with ``ctypes``.  No PyTorch
+headers are compiled, so the build takes seconds.
 The library's file name carries a hash of the sources, so an edited source
 is rebuilt and a stale library is never loaded.
 
@@ -36,7 +37,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nawc_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -75,6 +76,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnawc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd: list[str], rc: int, log: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{log}")
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels if their library is missing -> (path, nvcc log).
 
@@ -85,15 +91,25 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, _build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for cmd, p, log in zip(cmds, procs, logs):
+            _check(cmd, p.returncode, log)
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check(link, proc.returncode, proc.stdout)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
-    _build_log = proc.stdout + proc.stderr
+    _build_log = "".join(logs) + proc.stdout
     return out, _build_log
 
 

@@ -3,9 +3,10 @@ CUDA kernel ``csrc/rvq_fused.cu`` and its plain PyTorch version.
 
 The unfused path (``codec/model.py: ResidualVQ.encode``) round-trips the
 residual, projections, scores and dequantised contributions through device
-memory between levels.  The kernel keeps a tile of latent frames in shared
-memory and runs pool -> in_proj -> cosine argmax -> gather-dequantise ->
-out_proj -> residual subtract for every level before it writes codes.
+memory between levels.  The kernel keeps a tile of 24 latent frames and a
+level's codebook in one block's shared memory and runs pool -> in_proj ->
+cosine argmax -> gather-dequantise -> out_proj -> residual subtract for
+every level before it writes codes.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ _KERNEL = _lib.register(_lib.CudaKernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p],
 ))
-_TILE = 8  # kTile in csrc/rvq_fused.cu: full-rate frames per block
 
 
 def level_params(quantizer, i: int) -> tuple[torch.Tensor, ...]:
@@ -55,10 +55,18 @@ def rvq_encode_reference(z: torch.Tensor, quantizer, strides) -> list[torch.Tens
     return codes_out
 
 
+def _planes(x: torch.Tensor) -> torch.Tensor:
+    """(L, N, Cp) -> (L, Cp/4, N, 4): plane q holds float4 q of every row."""
+    n_lev, n, cp = x.shape
+    return x.reshape(n_lev, n, cp // 4, 4).permute(0, 2, 1, 3).contiguous()
+
+
 def pack_tables(quantizer, n_levels: int) -> tuple[torch.Tensor, ...]:
     """Stack every level's tables for the kernel, with the codebook width
-    zero-padded to a kernel instance: in_proj (L, D, Cp), bias (L, Cp),
-    out_proj (L, Cp, D), bias (L, D), normalised and raw codebooks (L, K, Cp)."""
+    zero-padded to a kernel instance Cp: in_proj as float4 planes
+    (L, Cp/4, D, 4), bias (L, Cp), out_proj (L, Cp, D), bias (L, D), the
+    normalised codebook as float4 planes (L, Cp/4, K, 4) and the raw one
+    (L, K, Cp)."""
     cols = [level_params(quantizer, i) for i in range(n_levels)]
     c = cols[0][4].shape[1]
     cp = kernel_dim(c)
@@ -66,8 +74,9 @@ def pack_tables(quantizer, n_levels: int) -> tuple[torch.Tensor, ...]:
     def stack(j, pad, fn=lambda x: x):
         return torch.stack([F.pad(fn(col[j].detach().float()), pad) for col in cols]).contiguous()
 
-    return (stack(0, (0, cp - c)), stack(1, (0, cp - c)), stack(2, (0, 0, 0, cp - c)),
-            stack(3, (0, 0)), stack(4, (0, cp - c), _l2_normalize), stack(4, (0, cp - c)))
+    return (_planes(stack(0, (0, cp - c))), stack(1, (0, cp - c)), stack(2, (0, 0, 0, cp - c)),
+            stack(3, (0, 0)), _planes(stack(4, (0, cp - c), _l2_normalize)),
+            stack(4, (0, cp - c)))
 
 
 def packed_tables(quantizer, n_levels: int) -> tuple[torch.Tensor, ...]:
@@ -80,10 +89,6 @@ def packed_tables(quantizer, n_levels: int) -> tuple[torch.Tensor, ...]:
 
 def _rvq_encode_cuda(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
     b, t, d = z.shape
-    for s in strides:
-        if _TILE % s or t % s:
-            raise ValueError(
-                f"rvq_encode_fused: stride {s} must divide the tile ({_TILE}) and T ({t})")
     z = z.detach().float().contiguous()
     tables = packed_tables(quantizer, len(strides))
     ink, inb, outk, outb, cbn, cbr = tables
@@ -93,7 +98,7 @@ def _rvq_encode_cuda(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
     strides_c = (ctypes.c_int * len(strides))(*strides)
     with torch.cuda.device(z.device):
         _KERNEL(*(_lib.ptr(x) for x in (z, ink, inb, outk, outb, cbn, cbr, codes)),
-                b, t, d, cbn.shape[2], cbn.shape[1], strides_c, len(strides), _lib.stream(z))
+                b, t, d, cbr.shape[2], cbr.shape[1], strides_c, len(strides), _lib.stream(z))
     return [c.reshape(b, t // s) for c, s in zip(torch.split(codes, sizes), strides)]
 
 
@@ -103,7 +108,8 @@ def rvq_encode_fused(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
 
     T' must divide by every stride (the codec's pad-to-chunk rule ensures
     it).  A CUDA tensor runs the fused kernel on tables packed once per
-    quantizer (:func:`packed_tables`); a CPU tensor the plain version."""
+    quantizer (:func:`packed_tables`); it takes up to 8 levels whose strides
+    divide 24, and raises on others.  A CPU tensor runs the plain version."""
     strides = tuple(int(s) for s in strides)
     if _lib.use_kernel(z):
         return _rvq_encode_cuda(z, quantizer, strides)

@@ -116,6 +116,31 @@ def _whiten_correlate_cuda(
     return z
 
 
+class _WhitenCorrelateKernel(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient, as the JAX
+    package pairs its Pallas forward with the XLA path's VJP
+    (``nawc_tpu/ops/sswm.py: _whiten_correlate_hybrid``): both compute the
+    same function, so the plain VJP is the kernel's.  There is no backward
+    kernel, as there is none in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, r, p, null_offsets):
+        ctx.null_offsets = null_offsets
+        ctx.save_for_backward(r, p)
+        return _whiten_correlate_cuda(r, p, null_offsets)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        r, p = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            r_, p_ = (x.detach().requires_grad_(n) for x, n in zip((r, p), need))
+            z = _whiten_correlate_plain(r_, p_, ctx.null_offsets)
+            grads = iter(torch.autograd.grad(z, [x for x in (r_, p_) if x.requires_grad], g))
+        return (next(grads) if need[0] else None), (next(grads) if need[1] else None), None
+
+
 def whiten_correlate(
     r: torch.Tensor,
     p: torch.Tensor,
@@ -130,10 +155,14 @@ def whiten_correlate(
         card at most 7, each taken mod T and at most 224 there.
 
     Returns:
-      (B, K) z statistics, ~N(0, 1) per bit on unmarked audio.
+      (B, K) z statistics, ~N(0, 1) per bit on unmarked audio.  On the
+      card, where r or p requires grad, z carries the plain version's
+      gradient (:class:`_WhitenCorrelateKernel`).
     """
     null_offsets = tuple(null_offsets)
     if _lib.use_kernel(r):
+        if torch.is_grad_enabled() and (r.requires_grad or p.requires_grad):
+            return _WhitenCorrelateKernel.apply(r, p, null_offsets)
         return _whiten_correlate_cuda(r, p, null_offsets)
     return _whiten_correlate_plain(r, p, null_offsets)
 

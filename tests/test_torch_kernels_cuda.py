@@ -74,6 +74,29 @@ def test_whiten_correlate_kernel_odd_shapes(dev, b, t, w, k, patterns):
     assert float((got - want).abs().max()) <= _Z_TOL
 
 
+@pytest.mark.parametrize("shape", [(16, 376, 367, 16), (3, 77, 130, 16)])
+def test_whiten_correlate_kernel_gradient_is_the_plain_one(dev, shape):
+    """d(sum z * w)/dr and /dp through the kernel's route equal those of the
+    plain version: both run the plain backward on the same r, p and w, so
+    they must be equal, not merely close."""
+    b, t, w, k = shape
+    rng = np.random.default_rng(16)
+    r0, p0, wt = _g(rng, (b, t, w), dev, 0.3), torch.sign(_g(rng, (k, t, w), dev)), _g(rng, (b, k), dev)
+
+    def grads():
+        r, p = r0.clone().requires_grad_(True), p0.clone().requires_grad_(True)
+        z = sswm.whiten_correlate(r, p, _OFFS)
+        (z * wt).sum().backward()
+        return z, r.grad, p.grad
+
+    n = sswm._KERNEL.launches
+    z_k, gr_k, gp_k = grads()
+    assert sswm._KERNEL.launches == n + 1 and z_k.grad_fn is not None
+    with _lib.plain_versions():
+        _, gr_p, gp_p = grads()
+    assert torch.equal(gr_k, gr_p) and torch.equal(gp_k, gp_p)
+
+
 def test_whiten_correlate_kernel_is_deterministic(dev):
     rng = np.random.default_rng(11)
     r = _g(rng, (16, 376, 367), dev, 0.3)
@@ -113,23 +136,85 @@ def test_nearest_codebook_ties_take_first_index(dev):
     assert rvq.nearest_codebook(z, cb).tolist() == [0, 1, 1]
 
 
-@pytest.mark.parametrize("b,t_lat", [(4, 256), (4, 768), (16, 192), (3, 100)])
-def test_rvq_encode_fused_kernel(dev, b, t_lat):
-    rng = np.random.default_rng(t_lat)
-    q = ResidualVQ(CodecConfig())
+def _random_vq(rng, dev, **cfg):
+    """A residual VQ with numpy-drawn float32 tables (fan-in scaled)."""
+    q = ResidualVQ(CodecConfig(**cfg))
     with torch.no_grad():
         for prm in q.parameters():
             fan = prm.shape[-1] if prm.ndim > 1 else 1
             prm.copy_(torch.as_tensor(rng.standard_normal(tuple(prm.shape)) / np.sqrt(fan)))
-    q = q.to(dev)
-    z = _g(rng, (b, t_lat, 768), dev)
-    strides = (4, 2, 1)
+    return q.to(dev).requires_grad_(False)
+
+
+def _check_rvq(q, z, strides=(4, 2, 1)):
     got = rvq_fused.rvq_encode_fused(z, q, strides)
     with _lib.plain_versions():
         want = rvq_fused.rvq_encode_fused(z, q, strides)
     for w, w_ref in zip(want, rvq_fused.rvq_encode_reference(z, q, strides)):
         assert torch.equal(w, w_ref)
     parity.compare_rvq(got, z, q, strides)
+    return got
+
+
+# (16, 188) is bench.py's unpadded encode; 100 and 188 end in a ragged tile
+@pytest.mark.parametrize("b,t_lat", [(4, 256), (4, 768), (16, 192), (3, 100), (16, 188)])
+def test_rvq_encode_fused_kernel(dev, b, t_lat):
+    rng = np.random.default_rng(t_lat)
+    q = _random_vq(rng, dev)
+    _check_rvq(q, _g(rng, (b, t_lat, 768), dev))
+
+
+# ragged code slices (K = 300), a padded width (C = 5 -> 8), C = 16 and 32
+# with slices too large to stay in shared memory (K = 4096), ragged channel
+# slices (Dl = 100, 5), and one and four levels
+@pytest.mark.parametrize("dl,k,c,strides", [
+    (768, 300, 8, (4, 2, 1)), (768, 300, 32, (4, 2, 1)), (768, 300, 5, (4, 2, 1)),
+    (768, 4096, 16, (4, 2, 1)), (768, 4096, 32, (4, 2, 1)), (100, 4096, 8, (4, 2, 1)),
+    (5, 64, 8, (2, 1)), (64, 128, 8, (1,)), (96, 512, 8, (8, 4, 2, 1)),
+])
+def test_rvq_encode_fused_kernel_odd_tables(dev, dl, k, c, strides):
+    rng = np.random.default_rng(dl + k + c)
+    q = _random_vq(rng, dev, latent_dim=dl, codebook_size=k, codebook_dim=c, vq_strides=strides)
+    _check_rvq(q, _g(rng, (3, 72, dl), dev), strides)
+
+
+@pytest.mark.parametrize("dl,strides,t_lat", [(768, (5,), 10), (768, (16, 1), 32), (4096, (4, 2, 1), 24)])
+def test_rvq_encode_fused_refuses_what_it_does_not_take(dev, dl, strides, t_lat):
+    """A stride that does not divide the 24-frame tile, or a tile of Dl
+    channels beyond shared memory, raises; nothing falls back."""
+    rng = np.random.default_rng(17)
+    q = _random_vq(rng, dev, latent_dim=dl, vq_strides=strides)
+    with pytest.raises(RuntimeError, match="rvq_encode_fused"):
+        rvq_fused.rvq_encode_fused(_g(rng, (2, t_lat, dl), dev), q, strides)
+
+
+def test_rvq_encode_fused_is_deterministic(dev):
+    rng = np.random.default_rng(14)
+    q = _random_vq(rng, dev)
+    z = _g(rng, (16, 188, 768), dev)
+    a = rvq_fused.rvq_encode_fused(z, q, (4, 2, 1))
+    b = rvq_fused.rvq_encode_fused(z, q, (4, 2, 1))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_rvq_encode_fused_tie_across_slices_takes_first_index(dev):
+    """Codes 100 and 3000 lie in different codebook slices of the cluster.
+    Every level's bias is made to dominate z_e and both rows point along it,
+    so every frame scores them equal and highest: every code must be 100."""
+    rng = np.random.default_rng(15)
+    q = _random_vq(rng, dev)
+    with torch.no_grad():
+        for lvl in q.levels:
+            v = _g(rng, (8,), dev)
+            lvl.in_proj.bias.copy_(v * 1e3)
+            lvl.codebook[100] = v
+            lvl.codebook[3000] = v
+    z = _g(rng, (4, 96, 768), dev)
+    got = rvq_fused.rvq_encode_fused(z, q, (4, 2, 1))
+    with _lib.plain_versions():
+        want = rvq_fused.rvq_encode_fused(z, q, (4, 2, 1))
+    for g, w in zip(got, want):
+        assert bool((w == 100).all()) and torch.equal(g, w)
 
 
 def test_nearest_codebook_tie_across_slices_takes_first_index(dev):

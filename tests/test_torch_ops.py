@@ -3,6 +3,7 @@ Pallas kernels run here in interpret mode, as nawc_tpu's own tests run them
 (tests/test_sswm_kernel.py, tests/test_codec.py, tests/test_rvq_fused.py).
 On CPU tensors every op of the port takes its plain version."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from nawc_tpu.ops.rvq import _nearest_codebook_pallas, nearest_codebook_referenc
 from nawc_tpu.ops.rvq_fused import _l2n, _rvq_encode_pallas, level_params as jax_level_params
 from nawc_tpu.ops.rvq_fused import rvq_encode_reference as jax_rvq_ref
 from nawc_tpu.ops.sswm import _whiten_correlate_pallas, whiten_correlate_reference as jax_wc_ref
+from nawc_tpu.ops.sswm import whiten_correlate as jax_whiten_correlate
 from nawc_tpu_torch.ops import _lib, rvq, rvq_fused, sswm
 
 _OFFS = (17, 23, 29, 37, 47, 53)
@@ -76,6 +78,55 @@ def test_plain_switch_on_cpu_is_the_plain_version():
     c = sswm._whiten_correlate_plain(t(r), t(p), _OFFS)
     assert torch.equal(a, b) and torch.equal(a, c)
     assert all(k.launches == 0 for k in _lib.KERNELS.values())
+
+
+def _grad_case(seed=6):
+    r, p = _case(3, 64, 40, 8, seed=seed)
+    w = np.random.default_rng(seed + 1).standard_normal((3, 8)).astype(np.float32)
+    return r, p, w
+
+
+def _port_grads(r, p, w):
+    r_, p_ = t(r).requires_grad_(True), t(p).requires_grad_(True)
+    (sswm.whiten_correlate(r_, p_, _OFFS) * t(w)).sum().backward()
+    return r_.grad, p_.grad
+
+
+def test_whiten_correlate_gradient_matches_jax():
+    """d(sum z * w)/dr and /dp of the port's CPU route against ``jax.grad``
+    of the JAX package's XLA path.  Tolerance 1e-4 of the largest |grad|:
+    each gradient cell sums NV = 7 pattern terms scaled by per-bin and
+    per-batch statistics that both packages reduce over T x W cells in
+    their own float32 order."""
+    r, p, w = _grad_case()
+    g_r, g_p = _port_grads(r, p, w)
+    want_r, want_p = jax.grad(
+        lambda r_, p_: jnp.sum(jax_whiten_correlate(r_, p_, _OFFS, use_pallas=False) * w),
+        argnums=(0, 1))(jnp.asarray(r), jnp.asarray(p))
+    for got, want in ((g_r, want_r), (g_p, want_p)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+
+
+def test_kernel_route_carries_the_plain_gradient(monkeypatch):
+    """The kernel's autograd wrapper, run here with the plain forward in the
+    kernel's place (a result without a graph, as the kernel's is): z
+    carries the plain version's gradient, for r, p or both; without grad
+    it builds no graph."""
+    def gradless(r, p, offs):
+        with torch.no_grad():
+            return sswm._whiten_correlate_plain(r, p, offs)
+
+    r, p, w = _grad_case(seed=9)
+    want_r, want_p = _port_grads(r, p, w)
+    monkeypatch.setattr(sswm, "_whiten_correlate_cuda", gradless)
+    monkeypatch.setattr(sswm._lib, "use_kernel", lambda x: True)
+    got_r, got_p = _port_grads(r, p, w)
+    assert torch.equal(got_r, want_r) and torch.equal(got_p, want_p)
+    p_ = t(p).requires_grad_(True)
+    (sswm.whiten_correlate(t(r), p_, _OFFS) * t(w)).sum().backward()
+    assert torch.equal(p_.grad, want_p)
+    assert sswm.whiten_correlate(t(r), t(p), _OFFS).grad_fn is None
 
 
 @pytest.mark.parametrize("n,k,d", [(300, 256, 8), (1001, 4096, 8), (77, 64, 5)])
@@ -191,7 +242,8 @@ def test_packed_tables_kept_until_a_table_changes(codecs):
     try:
         second = rvq_fused.packed_tables(q, n)
         assert second is not first
-        assert torch.equal(second[0][1, :, :w.shape[0]], w.T)
+        ink = second[0][1]  # level 1's in_proj as float4 planes (Cp/4, D, 4)
+        assert torch.equal(ink.permute(1, 0, 2).reshape(ink.shape[1], -1)[:, :w.shape[0]], w.T)
         w.data = w.detach().clone()  # a new tensor at a new address
         assert rvq_fused.packed_tables(q, n) is not second
     finally:

@@ -16,7 +16,7 @@ from nawc_tpu.models.spread_spectrum import _level_mask as jax_level_mask
 from nawc_tpu.utils.config import SpreadSpectrumConfig as JaxSSCfg
 from nawc_tpu.models import random_message as jax_random_message
 from nawc_tpu_torch.models import SpreadSpectrumWM, available, bit_accuracy, build, random_message
-from nawc_tpu_torch.models.spread_spectrum import _freq_smooth, _level_mask
+from nawc_tpu_torch.models.spread_spectrum import _freq_smooth, _level_mask, _quantiles
 from nawc_tpu_torch.utils import jaxrand
 from nawc_tpu_torch.utils.config import SpreadSpectrumConfig
 
@@ -106,6 +106,36 @@ def test_level_mask_and_freq_smooth_match():
                                    np.asarray(jax_level_mask(jnp.asarray(x), jc)), atol=1e-6)
     np.testing.assert_allclose(_freq_smooth(t(x)).numpy(),
                                np.asarray(jax_freq_smooth(jnp.asarray(x))), atol=1e-5)
+
+
+@pytest.mark.parametrize("q", [0.85, 0.15])
+@pytest.mark.parametrize("rows", ["ties", "smooth", "length 1"])
+def test_quantiles_match_jnp(q, rows):
+    """The sort-based quantile against ``jnp.quantile``'s default linear
+    interpolation, within float32 rounding of the interpolation."""
+    rng = np.random.default_rng(5)
+    x = {"ties": np.round(rng.normal(size=(3, 1001)), 1),  # many equal values
+         "smooth": rng.normal(size=(2, 4, 777)),
+         "length 1": rng.normal(size=(4, 1))}[rows].astype(np.float32)
+    got = _quantiles(t(x), (q,))[0].numpy()
+    want = np.asarray(jnp.quantile(jnp.asarray(x), q, axis=-1))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_level_mask_takes_no_torch_quantile(monkeypatch):
+    """``torch.quantile`` refuses rows over 2^24 elements; the level mask
+    must not reach it (shown with it made to raise, not with a 16M-cell
+    clip) and must still match the JAX mask."""
+    def refuse(*a, **k):
+        raise RuntimeError("quantile() input tensor is too large")
+
+    monkeypatch.setattr(torch, "quantile", refuse)
+    x = np.random.default_rng(6).normal(size=(2, 40, 90)).astype(np.float32)
+    jc = JaxSSCfg(mask_quantile=0.85, mask_lo_quantile=0.15)
+    tc = SpreadSpectrumConfig(mask_quantile=0.85, mask_lo_quantile=0.15)
+    np.testing.assert_allclose(_level_mask(t(x), tc).numpy(),
+                               np.asarray(jax_level_mask(jnp.asarray(x), jc)), atol=1e-6)
 
 
 def test_registry_and_messages():
