@@ -30,7 +30,20 @@ Phases, each printing its seconds:
 6. timing: embed, encode, detect and the three together per 16 x 4 s batch
    by CUDA events over chained iterations (a record, not a benchmark);
 7. profile: one step under ``torch.profiler``, the device's busy share and
-   the kernels that take the most device time.
+   the kernels that take the most device time;
+8. sweep: the survivability sweep on seeded speech-like clips and the
+   trained codec, each run once with the kernels and once with the plain
+   versions: ``run_robustness`` of the spread-spectrum watermark over the
+   attack suite (16 clips x 4 s at 16 kHz in 2 s chunks, without and with
+   sync detection), ``run_combined`` of spread_spectrum and chunked (16 x
+   2 s), ``run_robustness`` of the psychoacoustic watermark (8 x 4 s at
+   44.1 kHz) and its ``discover_message_length`` (K = 768).  Every
+   ``whiten_correlate`` and ``nearest_codebook`` call of the kernel runs is
+   held against its plain version on the same inputs; the rows of the two
+   runs must agree (bits and decisions equal except where a near-tie was
+   found), no row may carry an error, and both kernels must launch in the
+   sweep.  It prints each run's wall time, the slowest attacks and the
+   device time of one robustness run by kind.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -56,15 +69,20 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from nawc_tpu_torch.attacks import codec_roundtrip  # noqa: E402
+from nawc_tpu_torch.attacks import build_suite, codec_roundtrip  # noqa: E402
+from nawc_tpu_torch.codec import model as codec_model  # noqa: E402
 from nawc_tpu_torch.codec import load_codec  # noqa: E402
 from nawc_tpu_torch.codec.model import ResidualVQ  # noqa: E402
 from nawc_tpu_torch.entry import entry, flagship  # noqa: E402
-from nawc_tpu_torch.models import bit_accuracy  # noqa: E402
+from nawc_tpu_torch.eval import run_combined, run_robustness  # noqa: E402
+from nawc_tpu_torch.models import (  # noqa: E402
+    ChunkedWM, PsychoacousticWM, SpreadSpectrumWM, bit_accuracy)
+from nawc_tpu_torch.models import spread_spectrum as ss_module  # noqa: E402
 from nawc_tpu_torch.models.spread_spectrum import _NULL_OFFSETS  # noqa: E402
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
-from nawc_tpu_torch.utils.config import CodecConfig  # noqa: E402
+from nawc_tpu_torch.utils import jaxrand  # noqa: E402
+from nawc_tpu_torch.utils.config import CodecConfig, SpreadSpectrumConfig  # noqa: E402
 
 CHECKPOINT = REPO / "checkpoints" / "codec_24k.msgpack"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
@@ -162,6 +180,22 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def by_kind(events) -> dict[str, float]:
+    """Device ms of profiler events grouped by kind: the port's kernels,
+    convolutions, elementwise kernels, FFTs and the rest."""
+    groups: dict[str, float] = {}
+    for e in events:
+        kname = e.key.lower()
+        group = ("nawc kernels" if any(k in kname for k in ("sswm_", "nearest_codebook",
+                                                             "rvq_encode"))
+                 else "convolution" if any(k in kname for k in ("conv", "xmma", "implicit_gemm"))
+                 else "elementwise" if "elementwise" in kname
+                 else "fft" if "fft" in kname
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    return groups
+
+
 def timed_pair(label: str, fn) -> tuple[float, float]:
     """-> (device ms of the op `fn`, device ms of `fn` with the plain
     versions) on the same inputs, the wrapper's own preparation included in
@@ -225,6 +259,24 @@ def check_sswm(dev) -> dict:
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                        library_ms=lib_ms)
             check_sswm_gradient(r, p)
+    # the sweep's shapes (phase 8): 32 chunks of 2 s at 16 kHz; the
+    # psychoacoustic detector on 16 chunks of 2 s at 44.1 kHz (K = 60) and
+    # its message-length discovery on 8 clips of 4 s (K = 768)
+    for b, t, w, k in [(32, 126, 358, 16), (16, 174, 427, 60), (8, 346, 427, 768)]:
+        rng = np.random.default_rng(4)
+        r = torch.as_tensor(rng.standard_normal((b, t, w)) * 0.3, dtype=torch.float32, device=dev)
+        p = torch.sign(torch.as_tensor(rng.standard_normal((k, t, w)), dtype=torch.float32,
+                                       device=dev))
+        fn = lambda: sswm.whiten_correlate(r, p, _NULL_OFFSETS)  # noqa: E731
+        z_k = fn()
+        with _lib.plain_versions():
+            z_p = fn()
+        err = float((z_k - z_p).abs().max())
+        check(err <= Z_TOL, f"sswm {(b, t, w, k)}: |z - plain| {err} > {Z_TOL}")
+        ms, plain_ms = timed_pair(f"whiten_correlate sweep shape {(b, t, w, k)}", fn)
+        bms, by = bound(*sswm.bound_counts(b, t, w, k, 1 + len(_NULL_OFFSETS)))
+        print(f"whiten_correlate {(b, t, w, k)}: max|z - plain| {err:.3g}, bound {bms:.4f} ms ({by})")
+        del r, p, z_k, z_p
     return rec
 
 
@@ -314,6 +366,235 @@ def check_rvq_fused(dev, quantizer, cases, label: str) -> dict:
             rec = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                        library_ms=None)
     return rec
+
+
+# ------------------------------------------------------------------ phase 8
+
+DISCRETE = ("bitwise/", "hard/", "survived", "detector_works")
+NEAR_GATE = 1e-3   # presence gates: |mean |z| - z0| within this is a near-tie
+SISNR_TOL = 1e-3   # dB
+SCORE_TOL = 1e-3
+
+
+def speech_clips(n: int, seconds: float, sr: int, seed: int) -> list[np.ndarray]:
+    """Speech-like clips from `seed`: five harmonics of a gliding f0 under a
+    syllable-rate envelope, plus a noise floor."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(int(sr * seconds)) / sr
+    clips = []
+    for _ in range(n):
+        f0 = rng.uniform(100, 220) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0) * tt))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        env = np.clip(np.sin(2 * np.pi * rng.uniform(3, 5) * tt + rng.uniform(0, 6)), 0, None) ** 2
+        tone = sum(np.sin(h * phase) / h for h in range(1, 6)) * env
+        clips.append((0.25 * tone + 0.005 * rng.normal(size=tt.size)).astype(np.float32))
+    return clips
+
+
+class Recorder(contextlib.AbstractContextManager):
+    """Replaces `name` in `module` by a wrapper that keeps the arguments and
+    the result of each call, so that each call of a kernel run can be held
+    against the plain version on the same inputs afterwards."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.calls: list = []
+
+    def __enter__(self):
+        def record(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def check_sswm_calls(calls, z0: float) -> dict:
+    """Every recorded whiten_correlate call against the plain version on
+    its inputs: z within Z_TOL, bits equal wherever |z| > BIT_Z_MIN.
+    -> shapes and counts of calls, the largest error, the bits at |z| <=
+    BIT_Z_MIN that flipped, and the rows whose mean |z| lies within
+    NEAR_GATE of the presence gate z0."""
+    shapes: dict = {}
+    err, flips, near_gates = 0.0, 0, 0
+    for (r, p, offs), z_k in calls:
+        with _lib.plain_versions():
+            z_p = sswm.whiten_correlate(r, p, offs)
+        e = float((z_k - z_p).abs().max())
+        diff = (z_k > 0) != (z_p > 0)
+        shape = (*r.shape, p.shape[0])
+        check(e <= Z_TOL, f"sweep sswm {shape}: |z - plain| {e} > {Z_TOL}")
+        check(not bool((diff & (z_p.abs() > BIT_Z_MIN)).any()), f"sweep sswm {shape}: bits differ")
+        shapes[shape] = shapes.get(shape, 0) + 1
+        err, flips = max(err, e), flips + int(diff.sum())
+        near_gates += int(((z_p.abs().mean(dim=-1) - z0).abs() <= NEAR_GATE).sum())
+    return dict(shapes=shapes, max_err=err, near_bits=flips, near_gates=near_gates)
+
+
+def check_lookup_calls(calls) -> dict:
+    """Every recorded nearest_codebook call against the plain lookup."""
+    shapes: dict = {}
+    mism = frames = 0
+    for (z, cb), codes in calls:
+        m, f, _ = parity.compare_lookup(codes, z, cb)
+        mism, frames = mism + m, frames + f
+        shapes[tuple(z.shape)] = shapes.get(tuple(z.shape), 0) + 1
+    parity.check_share(mism, frames, "sweep nearest_codebook")
+    return dict(shapes=shapes, near_codes=mism, frames=frames)
+
+
+def timed_suite(suite: dict, seconds: dict) -> dict:
+    """The suite with each attack's wall time (synchronised) added to
+    `seconds` under its name."""
+    def wrap(name, fn):
+        def run(w, k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(w, k)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    return {name: wrap(name, fn) for name, fn in suite.items()}
+
+
+def rows_of(result) -> list[dict]:
+    return result.per_method + result.summary if hasattr(result, "per_method") else result
+
+
+def compare_rows(label: str, got: list[dict], want: list[dict], near_events: int) -> int:
+    """Kernel rows against plain rows: the same keys, strings and integers;
+    SI-SNR within SISNR_TOL and scores within SCORE_TOL; the discrete
+    columns (bits, decisions) equal.  Cells off those bars are allowed only
+    where the run met near-ties (`near_events` > 0), and then under 1% of
+    them.  -> the count of such cells."""
+    check(len(got) == len(want), f"{label}: {len(got)} rows against {len(want)}")
+    off = cells = 0
+    for g, w in zip(got, want):
+        check(list(g) == list(w), f"{label}: columns differ: {list(g)} vs {list(w)}")
+        for k, v in g.items():
+            cells += 1
+            if isinstance(v, float) and not k.startswith(DISCRETE):
+                tol = SISNR_TOL if k.startswith("sisnr") else SCORE_TOL
+                bad = not (abs(v - w[k]) <= tol or (np.isnan(v) and np.isnan(w[k])))
+            else:
+                bad = v != w[k]
+            off += bad
+    check(off == 0 or (near_events > 0 and off < 0.01 * cells),
+          f"{label}: {off} of {cells} cells differ from plain with {near_events} near-ties")
+    return off
+
+
+def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: dict | None = None
+              ) -> dict:
+    """`run()` once to warm up (cuDNN's and cuFFT's plans), then with the
+    kernels (counts from 0, every sswm and lookup call recorded) and then
+    with the plain versions; checks the calls, the kernels' launches, the
+    rows and that no row holds an error.  `attack_s`, filled by a
+    :func:`timed_suite` in `run`, keeps the kernel run's attack times."""
+    run()
+    if attack_s is not None:
+        attack_s.clear()
+    _lib.reset_launches()
+    with Recorder(ss_module, "whiten_correlate") as sw, Recorder(codec_model, "nearest_codebook") as lk:
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    for n in kernels:
+        check(launches[n] > 0, f"{label}: kernel {n} was not launched in the sweep")
+    kernel_attack_s = dict(attack_s or {})
+    t0 = time.perf_counter()
+    with _lib.plain_versions():
+        want = run()
+        torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    rows = rows_of(got)
+    errors = [r for r in rows + rows_of(want) if "error" in r]
+    check(not errors, f"{label}: error rows: {errors[:2]}")
+    s, c = check_sswm_calls(sw.calls, z0), check_lookup_calls(lk.calls)
+    near = s["near_bits"] + s["near_gates"] + c["near_codes"]
+    off = compare_rows(label, rows, rows_of(want), near)
+    print(f"sweep {label}: {len(rows)} rows, wall {wall:.2f} s (plain {plain_wall:.2f} s); "
+          f"launches {launches}")
+    print(f"  whiten_correlate calls by (B, T, W, K): {s['shapes']}, max|z - plain| "
+          f"{s['max_err']:.3g}, near-tie bits flipped {s['near_bits']}, rows near the gate "
+          f"{s['near_gates']}")
+    print(f"  nearest_codebook calls by (N, D): {c['shapes']}: {c['near_codes']} of {c['frames']} "
+          f"codes differ (near-ties); row cells off plain: {off}")
+    if kernel_attack_s:
+        slow = sorted(kernel_attack_s.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  attacks {sum(kernel_attack_s.values()):.2f} s of the {wall:.2f} s; slowest "
+              "(both applications): " + ", ".join(f"{k} {v:.3f} s" for k, v in slow))
+    return dict(rows=rows, plain=rows_of(want), wall=wall, launches=launches)
+
+
+def mean_of(rows: list[dict], col: str) -> float:
+    return float(np.mean([r[col] for r in rows]))
+
+
+def sweep(codec, dev, sizes=((16, 4.0), (16, 2.0), (8, 4.0))) -> dict:
+    """Phase 8; `sizes` are (clips, seconds) of the spread-spectrum
+    robustness runs, the combined run and the psychoacoustic runs."""
+    (n_ss, s_ss), (n_cb, s_cb), (n_psy, s_psy) = sizes
+    ss = SpreadSpectrumWM(SpreadSpectrumConfig(alpha=0.1))
+    psy = PsychoacousticWM()
+    attack_s: dict = {}
+    suite16 = build_suite(16_000, codec)
+    suite16.pop("identity")
+    suite44 = build_suite(44_100, codec)
+    suite44.pop("identity")
+    clips16 = speech_clips(n_ss, s_ss, 16_000, seed=10)
+    wav16 = np.stack(speech_clips(n_cb, s_cb, 16_000, seed=11))
+    clips44 = speech_clips(n_psy, s_psy, 44_100, seed=12)
+    both = ("whiten_correlate", "nearest_codebook")
+    out = {}
+    for label, draw in [("normal", lambda: jaxrand.normal(jaxrand.prng_key(0), (32, 32_000))),
+                        ("uniform", lambda: jaxrand.uniform(jaxrand.prng_key(0), (32, 32_000)))]:
+        t0 = time.perf_counter()
+        draw()
+        print(f"host draw jaxrand.{label} (32, 32000): {1e3 * (time.perf_counter() - t0):.1f} ms")
+    out["spread_spectrum"] = sweep_run(
+        "spread_spectrum", lambda: run_robustness(ss, timed_suite(suite16, attack_s), clips16,
+                                                  16_000, 2.0, device=dev),
+        ss.presence_z0, both, attack_s)
+    out["sync"] = sweep_run(
+        "spread_spectrum sync", lambda: run_robustness(ss, suite16, clips16, 16_000, 2.0, sync=True,
+                                                       device=dev),
+        ss.presence_z0, ("nearest_codebook",))
+    out["combined"] = sweep_run(
+        "combined spread_spectrum + chunked",
+        lambda: run_combined({"spread_spectrum": ss, "chunked": ChunkedWM()},
+                             build_suite(16_000, codec), wav16, device=dev),
+        ss.presence_z0, both)
+    out["psychoacoustic"] = sweep_run(
+        "psychoacoustic", lambda: run_robustness(psy, suite44, clips44, 44_100, 2.0, device=dev),
+        psy._core.presence_z0, both)
+    for key in ("spread_spectrum", "psychoacoustic"):
+        print(f"clean-channel bitwise/clean of {key}: {mean_of(out[key]['rows'], 'bitwise/clean'):.4f} "
+              f"(plain {mean_of(out[key]['plain'], 'bitwise/clean'):.4f})")
+
+    with torch.no_grad():
+        marked = psy.embed(torch.as_tensor(np.stack(clips44), device=dev))
+        _lib.reset_launches()
+        with Recorder(ss_module, "whiten_correlate") as sw:
+            n_sym = psy.discover_message_length(marked)
+        check(_lib.KERNELS["whiten_correlate"].launches > 0, "discovery did not launch sswm")
+        with _lib.plain_versions():
+            n_plain = psy.discover_message_length(marked)
+    out["discovery launches"] = _lib.KERNELS["whiten_correlate"].launches
+    s = check_sswm_calls(sw.calls, psy._core.presence_z0)
+    check(n_sym == n_plain, f"discover_message_length {n_sym} against plain {n_plain}")
+    print(f"discover_message_length: {n_sym} symbols (plain {n_plain}; 5 were embedded); "
+          f"sswm calls {s['shapes']}, max|z - plain| {s['max_err']:.3g}")
+    out["discovered"] = n_sym
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -438,21 +719,34 @@ def main() -> int:
         kernels_ev = sorted(device_events(lambda: step(x_prof)),
                             key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in kernels_ev) / 1e3
-        groups: dict[str, float] = {}
-        for e in kernels_ev:
-            kname = e.key.lower()
-            group = ("nawc kernels" if any(k in kname for k in ("sswm_", "nearest_codebook",
-                                                                 "rvq_encode"))
-                     else "convolution" if any(k in kname for k in ("conv", "xmma", "implicit_gemm"))
-                     else "elementwise" if "elementwise" in kname
-                     else "fft" if "fft" in kname
-                     else "other")
-            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        groups = by_kind(kernels_ev)
         print(f"one step: {busy_ms:.3f} ms of kernel time = {100 * busy_ms / ms_batch:.1f}% of the "
               f"{ms_batch:.3f} ms per batch timed without the profiler")
-        by_kind = sorted(groups.items(), key=lambda kv: -kv[1])
-        print("by kind: " + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kind))
+        print("by kind: " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
         for e in kernels_ev[:12]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+    with phase("8 sweep"):
+        swept = sweep(codec, dev)
+        sweep_launches = {n: sum(swept[k]["launches"][n] for k in
+                                 ("spread_spectrum", "sync", "combined", "psychoacoustic"))
+                          for n in _lib.KERNELS}
+        sweep_launches["whiten_correlate"] += swept["discovery launches"]
+        print(f"launches in the sweep's kernel runs: {sweep_launches}")
+        x16 = speech_clips(16, 4.0, 16_000, seed=10)
+        ss = SpreadSpectrumWM(SpreadSpectrumConfig(alpha=0.1))
+        suite16 = build_suite(16_000, codec)
+        suite16.pop("identity")
+        ev = device_events(lambda: run_robustness(ss, suite16, x16, 16_000, 2.0, device=dev))
+        groups = by_kind(ev)
+        busy = sum(groups.values()) / 1e3
+        print(f"one spread_spectrum robustness run: {busy:.3f} s of kernel time, "
+              f"{100 * busy / swept['spread_spectrum']['wall']:.1f}% of its unprofiled wall time "
+              f"({swept['spread_spectrum']['wall']:.2f} s); by "
+              "kind: " + ", ".join(f"{k} {v:.3f} ms"
+                                   for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -467,6 +761,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[n], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "sweep_launches": sweep_launches[n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

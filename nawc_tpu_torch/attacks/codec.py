@@ -1,8 +1,10 @@
-"""Neural-codec attacks (``nawc_tpu/attacks/codec.py``): the LALM round-trip
-and codebook-layer ablation over a :class:`~nawc_tpu_torch.codec.CodecState`.
+"""Neural-codec attacks (``nawc_tpu/attacks/codec.py``): the LALM round-trip,
+codebook-layer ablation and the quantizer-bypass latent round-trip over a
+:class:`~nawc_tpu_torch.codec.CodecState`, and a generic latent-space attack.
 
-Both peak-normalise the input into the codec's training loudness, pad to the
-codec chunk, run the codec, undo the gain and fix the length.
+The first three peak-normalise the input into the codec's training
+loudness, pad to the codec chunk, run the codec, undo the gain and fix the
+length.
 """
 
 from __future__ import annotations
@@ -50,6 +52,23 @@ def layer_ablation(
     (num_levels,) in {0, 1}."""
     return _attack(codec, wav, in_sr,
                    lambda x: codec.decode(codec.encode(x), level_mask=level_mask))
+
+
+def latent_roundtrip(
+    codec: CodecState, wav: torch.Tensor, in_sr: int | None = None
+) -> torch.Tensor:
+    """Quantizer-bypass round-trip (continuous latents): the mild neural-codec
+    resynthesis that plays the reference suite's high-bitrate ``encodec``
+    attack, where :func:`codec_roundtrip` plays the destructive ``dac``."""
+    return _attack(codec, wav, in_sr, lambda x: codec.decode_latent(codec.encode_latent(x)))
+
+
+def latent_transform_attack(codec: CodecState, wav: torch.Tensor, fn) -> torch.Tensor:
+    """Encode continuously, apply `fn` to the latents, decode; no gain
+    normalisation and no resampling."""
+    t_in = wav.shape[-1]
+    z = codec.encode_latent(pad_to_multiple(wav, codec.cfg.chunk, axis=-1))
+    return fix_length(codec.decode_latent(fn(z)), t_in)
 
 
 def ablation_masks(num_levels: int, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:

@@ -1,0 +1,93 @@
+"""Shared CLI plumbing (``nawc_tpu/cli/common.py``): audio loading, the
+codec and watermarker construction, for the entry points the port has."""
+
+from __future__ import annotations
+
+import glob as globlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# clips are looked up relative to the working directory (``data/`` is
+# git-ignored); the JAX package's default names the reference dataset's
+# absolute location
+DEFAULT_AUDIO_GLOB = "data/LibriSpeech/*.wav"
+
+WM_CHOICES = (
+    "spread_spectrum", "chunked", "psychoacoustic",
+    "semantic_pca", "semantic_cluster", "semantic_random",
+    "token_green", "neural",
+)
+# the families the port has; the others are queued in ROADMAP.md (A6)
+PORTED = ("spread_spectrum", "chunked", "psychoacoustic")
+
+
+def load_audio_clips(
+    audio_glob: str,
+    count: int,
+    sr: int,
+    max_seconds: float,
+    offset: int = 0,
+) -> list[np.ndarray]:
+    """Clips at their native length (capped at `max_seconds`), resampled to
+    `sr`, mono: the robustness schema must not count fabricated silence."""
+    from ..dsp.resample import resample
+    from ..utils import audio_io
+
+    files = sorted(globlib.glob(audio_glob))[offset : offset + count]
+    if not files:
+        raise SystemExit(f"no audio files match {audio_glob}")
+    cap = int(max_seconds * sr)
+    out = []
+    for f in files:
+        a, fsr = audio_io.read_wav(f)
+        x = torch.from_numpy(a.mean(axis=0))
+        if fsr != sr:
+            x = resample(x, fsr, sr)
+        out.append(x.numpy().astype(np.float32)[:cap])
+    return out
+
+
+def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device = "cuda"):
+    """A CodecState: JAX's seed-0 init of the `size` config, with the
+    weights of `ckpt` when it exists."""
+    from ..codec import load_codec as read_codec
+    from ..codec import make_codec
+    from ..utils.config import CodecConfig
+
+    cfg = CodecConfig() if size == "full" else CodecConfig(
+        encoder_dim=8, latent_dim=64, decoder_dim=64, codebook_size=128, codebook_dim=8
+    )
+    if ckpt and Path(ckpt).exists():
+        codec = read_codec(ckpt, cfg, device=device)
+        print(f"[codec] restored weights from {ckpt}")
+    else:
+        codec = make_codec(cfg, device=device, seed=0)
+        print(f"[codec] WARNING: no checkpoint at {ckpt!r}; using RANDOM weights "
+              "(codec round-trips will destroy audio)")
+    return codec
+
+
+def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = None) -> dict[str, object]:
+    """Name -> watermarker instance, for the families the port has."""
+    from ..models import ChunkedWM, PsychoacousticWM, SpreadSpectrumWM
+    from ..utils.config import SpreadSpectrumConfig
+
+    out: dict[str, object] = {}
+    for n in names:
+        if n == "spread_spectrum":
+            cfg = SpreadSpectrumConfig(alpha=0.1) if sample_rate is None else SpreadSpectrumConfig(
+                sample_rate=sample_rate, band_hi_hz=min(0.45 * sample_rate, 9000.0), alpha=0.1
+            )
+            out[n] = SpreadSpectrumWM(cfg=cfg)
+        elif n == "chunked":
+            out[n] = ChunkedWM()
+        elif n == "psychoacoustic":
+            out[n] = PsychoacousticWM()
+        elif n in WM_CHOICES:
+            raise SystemExit(f"watermark {n!r} is not ported to nawc_tpu_torch yet "
+                             f"(ROADMAP.md A6); ported: {PORTED}")
+        else:
+            raise SystemExit(f"unknown watermark {n!r}; choices: {WM_CHOICES}")
+    return out

@@ -1,0 +1,81 @@
+"""Audio-quality metrics, batched on the device (``nawc_tpu/eval/metrics.py``):
+SI-SNR, SNR, log-spectral distance and the short-time intelligibility
+approximation.  PESQ waits for ``eval/quality`` (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..dsp.stft import stft
+from ..utils.config import StftConfig
+
+_EPS = 1e-8
+
+
+def si_snr(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
+    """Scale-invariant SNR in dB over the last axis; batched elsewhere."""
+    ref = ref - ref.mean(dim=-1, keepdim=True)
+    est = est - est.mean(dim=-1, keepdim=True)
+    dot = (ref * est).sum(dim=-1, keepdim=True)
+    energy = (ref * ref).sum(dim=-1, keepdim=True)
+    proj = dot / (energy + _EPS) * ref
+    noise = est - proj
+    return 10.0 * torch.log10(((proj**2).sum(dim=-1) + _EPS) / ((noise**2).sum(dim=-1) + _EPS))
+
+
+def snr(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
+    """Classic SNR in dB of est against ref."""
+    err = ref - est
+    return 10.0 * torch.log10(((ref**2).sum(dim=-1) + _EPS) / ((err**2).sum(dim=-1) + _EPS))
+
+
+def lsd(ref: torch.Tensor, est: torch.Tensor,
+        cfg: StftConfig = StftConfig(2048, 512, 2048)) -> torch.Tensor:
+    """Log-spectral distance (dB): the RMS over frequency of 20 log10 of the
+    magnitude ratio, averaged over frames."""
+    d = 20.0 * (torch.log10(stft(ref, cfg).abs() + _EPS) - torch.log10(stft(est, cfg).abs() + _EPS))
+    return torch.sqrt((d * d).mean(dim=-1)).mean(dim=-1)
+
+
+def _third_octave_matrix(sr: int, n_fft: int, n_bands: int = 15, f_start: float = 150.0) -> np.ndarray:
+    """(n_bins, n_bands) rectangular 1/3-octave band matrix (STOI-style)."""
+    freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
+    mat = np.zeros((freqs.size, n_bands), np.float32)
+    for k in range(n_bands):
+        lo = f_start * 2 ** (k / 3.0)
+        hi = f_start * 2 ** ((k + 1) / 3.0)
+        mat[:, k] = ((freqs >= lo) & (freqs < hi)).astype(np.float32)
+    return mat
+
+
+def stoi(ref: torch.Tensor, est: torch.Tensor, sample_rate: int = 16_000) -> torch.Tensor:
+    """Short-time objective intelligibility (an approximation): 1/3-octave
+    band envelopes of 25 ms frames, correlated over 384 ms (30-frame)
+    segments with clipped normalisation, averaged.  Tracks pystoi's ranking;
+    not the published algorithm bit for bit."""
+    n_fft = 512 if sample_rate <= 16_000 else 1024
+    cfg = StftConfig(n_fft, n_fft // 2, n_fft)
+    ob = torch.from_numpy(_third_octave_matrix(sample_rate, n_fft)).to(ref.device)
+    xr = torch.sqrt((stft(ref, cfg).abs() ** 2) @ ob + _EPS)  # (..., T', bands)
+    xe = torch.sqrt((stft(est, cfg).abs() ** 2) @ ob + _EPS)
+    seg = 30
+    n_seg = max(xr.shape[-2] - seg + 1, 1)
+    idx = torch.arange(n_seg, device=ref.device)[:, None] + torch.arange(seg, device=ref.device)[None, :]
+    rs = xr[..., idx, :]  # (..., n_seg, seg, bands)
+    es = xe[..., idx, :]
+    # normalise the estimate's segment energy to the reference's, clipped at
+    # a +15 dB SDR floor
+    scale = torch.sqrt((rs**2).sum(dim=-2, keepdim=True) / ((es**2).sum(dim=-2, keepdim=True) + _EPS))
+    es = torch.minimum(es * scale, rs * (1 + 10 ** (-15.0 / 20.0)))
+    rm = rs - rs.mean(dim=-2, keepdim=True)
+    em = es - es.mean(dim=-2, keepdim=True)
+    corr = (rm * em).sum(dim=-2) / (
+        torch.linalg.vector_norm(rm, dim=-2) * torch.linalg.vector_norm(em, dim=-2) + _EPS)
+    return corr.mean(dim=(-2, -1))
+
+
+def si_sdr(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
+    """The name the reference's LALM probe uses for :func:`si_snr`."""
+    return si_snr(ref, est)

@@ -166,16 +166,19 @@ class SpreadSpectrumWM:
         return torch.clamp(marked, -1.0, 1.0)
 
     # -- detect ------------------------------------------------------------
+    def _band_residual(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, T) -> (B, T', W) band log-magnitude minus its spectral
+        envelope, down-weighted where the embed spared the loudest bins."""
+        lo, hi = _band_slice(self.cfg)
+        logmag = torch.log(torch.abs(stft(wav, self.stft_cfg)) + 1e-6)
+        r = (logmag - _freq_smooth(logmag))[..., lo:hi]
+        return r * _level_mask(logmag[..., lo:hi], self.cfg)
+
     def _correlate(self, wav: torch.Tensor) -> torch.Tensor:
         """(B, T) -> (B, n_bits) self-calibrated statistics z_b
         (~N(0,1) on unmarked audio)."""
-        lo, hi = _band_slice(self.cfg)
-        spec = stft(wav, self.stft_cfg)
-        t = spec.shape[-2]
-        p = _tile_patterns(self._patterns(wav.device), t)  # (n_bits, T', W)
-        logmag = torch.log(torch.abs(spec) + 1e-6)
-        r = (logmag - _freq_smooth(logmag))[..., lo:hi]  # (B, T', W)
-        r = r * _level_mask(logmag[..., lo:hi], self.cfg)
+        r = self._band_residual(wav)  # (B, T', W)
+        p = _tile_patterns(self._patterns(wav.device), r.shape[-2])  # (n_bits, T', W)
         return whiten_correlate(r, p, _NULL_OFFSETS)
 
     def _presence(self, z: torch.Tensor) -> torch.Tensor:
@@ -184,6 +187,50 @@ class SpreadSpectrumWM:
     def detect(self, wav: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         z = self._correlate(wav)
         return self._presence(z), (z > 0).to(torch.int32)
+
+    # -- synchronization search -------------------------------------------
+    def _whitened_residual(self, wav: torch.Tensor) -> torch.Tensor:
+        r = self._band_residual(wav)
+        mu = r.mean(dim=-2, keepdim=True)
+        sd = r.std(dim=-2, keepdim=True, correction=0)  # jnp.std is the population std
+        r = (r - mu) / (sd + 0.2)
+        return r - r.mean(dim=(-2, -1), keepdim=True)
+
+    def _correlate_all_lags(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, T) -> (B, n_bits, L) correlation statistics at every cyclic
+        frame lag, by FFT cross-correlation along time; sigma per clip is
+        1.4826 times the median |c| over bits and lags (``jnp.median``
+        averages the two middle values, as ``_quantiles`` does at 0.5)."""
+        r = self._whitened_residual(wav)  # (B, T', W)
+        t = r.shape[-2]
+        p = _tile_patterns(self._patterns(wav.device), t)  # (K, T', W)
+        p = p - p.mean(dim=-2, keepdim=True)
+        rf = torch.fft.rfft(r, dim=-2)  # (B, F, W)
+        pf = torch.fft.rfft(p, dim=-2)  # (K, F, W)
+        cross = torch.einsum("bfw,kfw->bkf", rf, torch.conj(pf))
+        c = torch.fft.irfft(cross, n=t, dim=-1)  # (B, K, L)
+        med = _quantiles(c.abs().reshape(c.shape[0], -1), (0.5,))[0]
+        sigma = 1.4826 * med[:, None, None]
+        return c / (sigma + 1e-8)
+
+    def detect_sync(
+        self, wav: torch.Tensor, max_lag: int | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Shift-robust detection: search frame lags, decode at the best.
+        -> (presence, bits, best_lag_frames).  `max_lag` restricts the
+        search window (None = all cyclic lags); the presence gate sits higher
+        than plain detect's, since the max over L lags is inflated under H0."""
+        z = self._correlate_all_lags(wav)  # (B, K, L)
+        if max_lag is not None:
+            z = z[..., : max_lag + 1]
+        strength = z.abs().mean(dim=-2)  # (B, L)
+        best = torch.argmax(strength, dim=-1)  # (B,), the first on ties
+        z_best = torch.gather(z, -1, best[:, None, None].expand(-1, z.shape[1], 1))[..., 0]
+        bits = (z_best > 0).to(torch.int32)
+        lags = np.float32(max(z.shape[-1], 2))
+        z0 = self.presence_z0 + np.float32(0.1) * np.sqrt(np.float32(2.0) * np.log(lags))
+        presence = torch.sigmoid(6.0 * (z_best.abs().mean(dim=-1) - float(z0)))
+        return presence, bits, best
 
     def score(self, wav: torch.Tensor, msg: torch.Tensor | None = None) -> torch.Tensor:
         """Presence probability; with a known payload, the signed correlation."""

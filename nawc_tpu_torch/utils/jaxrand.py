@@ -4,8 +4,10 @@ The spread-spectrum PN patterns are drawn with
 ``bernoulli(fold_in(PRNGKey(seed), b), 0.5, shape)``.  A mark made by one
 package is readable by the other only if both draw the same bits, so this
 module reproduces jax's threefry2x32 hash, ``PRNGKey``, ``fold_in``,
-``random_bits`` and ``bernoulli`` under ``jax_threefry_partitionable=True``
-(the default of jax 0.9).  Everything is uint32 arithmetic in numpy.
+``split``, ``random_bits``, ``uniform``, ``normal`` and ``bernoulli`` under
+``jax_threefry_partitionable=True`` (the default of jax 0.9).  The keyed
+attacks draw their noise here too, so that they draw what JAX draws.
+Everything is uint32 and float32 arithmetic in numpy, on the host.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _U32 = np.uint32
+_F32 = np.float32
 
 
 def _rotl(x: np.ndarray, d: int) -> np.ndarray:
@@ -71,13 +74,123 @@ def random_bits(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     return (y1 ^ y2).reshape(shape)
 
 
-def uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+def _unit_uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     """float32 uniform in [0, 1): 23 random mantissa bits under exponent 0."""
     bits = random_bits(key, shape)
     fbits = (bits >> _U32(32 - 23)) | np.array(1.0, np.float32).view(_U32)
     return fbits.view(np.float32) - np.float32(1.0)
 
 
+def uniform(key: np.ndarray, shape: tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.  XLA on
+    the CPU fuses ``u * (maxval - minval) + minval`` into one multiply-add,
+    rounded once, as :func:`_fma` does."""
+    lo, hi = _F32(minval), _F32(maxval)
+    u = _unit_uniform(key, shape)
+    return np.maximum(lo, _fma(u, hi - lo, lo))
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as XLA's CPU code contracts it:
+    float64 holds the product of two float32 exactly."""
+    f64 = np.float64
+    return (np.asarray(a, f64) * np.asarray(b, f64) + np.asarray(c, f64)).astype(_F32)
+
+
+def _horner(x: np.ndarray, coeffs) -> np.ndarray:
+    p = np.zeros_like(x)
+    for c in coeffs:
+        p = _fma(p, x, c)
+    return p
+
+
+# XLA's float32 log: Cephes' polynomial on the mantissa in [sqrt(1/2), sqrt(2))
+_LOG_P = tuple(map(_F32, (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+                          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+                          3.3333331174e-1)))
+
+
+def _log(v: np.ndarray) -> np.ndarray:
+    """XLA's float32 log on the CPU for 0 < v < 1: Cephes' polynomial, each
+    multiply-add fused or not as XLA's compiled code has it (found by
+    comparison with it; it differs in about 5 of 10^6 arguments, by 1 ulp)."""
+    m, e = np.frexp(v)
+    m, e = m.astype(_F32), e.astype(_F32)
+    small = m < _F32(0.707106781186547524)
+    e = e - small.astype(_F32)
+    x = (m - _F32(1)) + np.where(small, m, _F32(0))
+    x2 = x * x
+    x3 = x2 * x
+    p = (x * _LOG_P[0] + _LOG_P[1]) * x + _LOG_P[2]
+    p1 = (x * _LOG_P[3] + _LOG_P[4]) * x + _LOG_P[5]
+    p2 = _fma(_fma(x, _LOG_P[6], _LOG_P[7]), x, _LOG_P[8])
+    y = _fma(p * x3 + p1, x3, p2)
+    y = _fma(y, x3, _F32(-2.12194440e-4) * e)
+    return _fma(_F32(0.693359375), e, _fma(_F32(-0.5), x2, x) + y)
+
+
+# XLA's float32 log1p for |x| < sqrt(2) - 1: Cephes' rational approximation
+_LOG1P_NUM = tuple(map(_F32, (2.0039553499201281259648e1, 5.7112963590585538103336e1,
+                              6.0949667980987787057556e1, 2.9911919328553073277375e1,
+                              6.5787325942061044846969e0, 4.9854102823193375972212e-1,
+                              4.5270000862445199635215e-5)))
+_LOG1P_DEN = tuple(map(_F32, (6.0118660497603843919306e1, 2.1642788614495947685003e2,
+                              3.0909872225312059774938e2, 2.2176239823732856465394e2,
+                              8.3047565967967209469434e1, 1.5062909083469192043167e1, 1.0)))
+
+
+def _log1p(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 log1p on the CPU for -1 < x <= 0."""
+    x2 = x * x
+    r = _horner(x, _LOG1P_NUM[::-1]) / _horner(x, _LOG1P_DEN[::-1])
+    small = x + _fma(_F32(-0.5), x2, (x * x2) * r)
+    with np.errstate(divide="ignore"):
+        large = _log(_F32(1) + x)
+    return np.where(np.abs(x) < _F32(0.41421356237309504880), small, large)
+
+
+# Giles' coefficients of XLA's float32 erf_inv for w < 5 and w >= 5, lowest
+# power first
+_ERFINV_LO = tuple(map(_F32, (1.50140941, 0.246640727, -0.00417768164, -0.00125372503,
+                              0.00021858087, -4.39150654e-06, -3.5233877e-06, 3.43273939e-07,
+                              2.81022636e-08)))
+_ERFINV_HI = tuple(map(_F32, (2.83297682, 1.00167406, 0.00943887047, -0.0076224613,
+                              0.00573950773, -0.00367342844, 0.00134934322, 0.000100950558,
+                              -0.000200214257)))
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """``jax.lax.erf_inv`` for float32 |x| < 1 as XLA computes it on the CPU
+    (M. Giles, "Approximating the erfinv function", with its log1p and its
+    multiply-adds).  Not ``torch.special.erfinv``: that one is closer to the
+    true function, so it strays from XLA's values."""
+    x = np.asarray(x, _F32)
+    w = -_log1p(x * -x)
+    lo = w < _F32(5.0)
+    with np.errstate(invalid="ignore"):
+        w = np.where(lo, w - _F32(2.5), np.sqrt(w) - _F32(3.0))
+    p = np.zeros_like(x)
+    for c_lo, c_hi in zip(_ERFINV_LO[::-1], _ERFINV_HI[::-1]):
+        p = _fma(p, w, np.where(lo, c_lo, c_hi))
+    return p * x
+
+
+def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) erf_inv(u) of a
+    uniform u in (-1, 1); within 2 ulp of JAX's, equal in all but about one
+    draw in 10^6 (see :func:`_log`)."""
+    lo = np.nextafter(_F32(-1.0), _F32(0.0))
+    return _F32(np.sqrt(2)) * erf_inv(uniform(key, shape, lo, _F32(1.0)))
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` -> (num, 2) uint32 keys: key i is the
+    hash of the counter pair (0, i)."""
+    y1, y2 = threefry2x32(key, np.zeros(num, _U32), np.arange(num, dtype=_U32))
+    return np.stack([y1, y2], axis=-1)
+
+
 def bernoulli(key: np.ndarray, p: float, shape: tuple[int, ...]) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)`` with a float32 `p`."""
-    return uniform(key, shape) < np.float32(p)
+    return _unit_uniform(key, shape) < np.float32(p)

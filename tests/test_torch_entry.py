@@ -111,7 +111,7 @@ def test_service_matches_jax():
 
 _ISOLATED = r"""
 import importlib, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "nawc_tpu"}
+BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "nawc_tpu", "pandas", "matplotlib"}
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]

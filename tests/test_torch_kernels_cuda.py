@@ -34,7 +34,10 @@ def _g(rng, shape, dev, scale=1.0):
 
 
 @pytest.mark.parametrize("shape", [(16, 126, 367, 16), (16, 376, 367, 16), (3, 77, 130, 16),
-                                   (8, 250, 450, 60)])
+                                   (8, 250, 450, 60),
+                                   # the psychoacoustic detector at 44.1 kHz on 4 s clips,
+                                   # and its message-length discovery (64 symbols x 12 bits)
+                                   (8, 346, 427, 60), (2, 346, 427, 768)])
 def test_whiten_correlate_kernel(dev, shape):
     b, t, w, k = shape
     rng = np.random.default_rng(0)
