@@ -43,7 +43,28 @@ Phases, each printing its seconds:
    runs must agree (bits and decisions equal except where a near-tie was
    found), no row may carry an error, and both kernels must launch in the
    sweep.  It prints each run's wall time, the slowest attacks and the
-   device time of one robustness run by kind.
+   device time of one robustness run by kind;
+9. bf16 codec: the trained codec in bfloat16 on the main path's batch: code
+   agreement with the float32 codec per level (JAX's bar: above 0.94 on
+   average), decode rel-rms against float32 (under 0.1), and the time per
+   batch of embed + bf16 encode + detect beside phase 6's float32 figure;
+10. codec-latent watermarks: ``run_combined`` of semantic_pca,
+   semantic_cluster, semantic_random and token_green at their operating
+   point (300 Adam steps) on 4 seeded speech-like clips of 2 s at 16 kHz,
+   resampled to the codec's 24 kHz as ``cli/benchmark.py`` does, with the
+   24 kHz suite.  Every ``rvq_encode_fused`` and ``nearest_codebook`` call
+   is held against its plain version on its own inputs (so cuDNN's
+   nondeterministic backward, which may move the marked audio between
+   runs, cannot hide or fake a difference), and token_green's score is held
+   against the plain route's on the same marked audio.  Per method: the
+   embed's wall time and ms per Adam step, peak memory of one embed, the
+   device time of one step by kind, marked and clean scores, SI-SNR,
+   detector pass rate and survival under ``dac`` and ``encodec``; no row
+   may be an ERROR row;
+11. PGD: ``pgd_attack`` against the spread-spectrum score at ``cli/pgd.py``'s
+   defaults (8 x 2 s at 16 kHz, 100 steps, eps 0.02, lr 0.001): the score
+   before and after, the SI-SNR, the sswm launches (one forward per step),
+   and one step's gradient through the kernel against the plain route's.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -55,6 +76,7 @@ break parity with the JAX reference), and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,16 +91,20 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from nawc_tpu_torch.attacks import build_suite, codec_roundtrip  # noqa: E402
+from nawc_tpu_torch.attacks import build_suite, codec_roundtrip, pgd_attack  # noqa: E402
+from nawc_tpu_torch.cli.common import build_watermarkers  # noqa: E402
+from nawc_tpu_torch.codec import api as codec_api  # noqa: E402
 from nawc_tpu_torch.codec import model as codec_model  # noqa: E402
 from nawc_tpu_torch.codec import load_codec  # noqa: E402
 from nawc_tpu_torch.codec.model import ResidualVQ  # noqa: E402
 from nawc_tpu_torch.entry import entry, flagship  # noqa: E402
-from nawc_tpu_torch.eval import run_combined, run_robustness  # noqa: E402
+from nawc_tpu_torch.dsp.resample import resample  # noqa: E402
+from nawc_tpu_torch.eval import run_combined, run_robustness, si_snr  # noqa: E402
 from nawc_tpu_torch.models import (  # noqa: E402
-    ChunkedWM, PsychoacousticWM, SpreadSpectrumWM, bit_accuracy)
+    ChunkedWM, PsychoacousticWM, SpreadSpectrumWM, bit_accuracy, random_message)
 from nawc_tpu_torch.models import spread_spectrum as ss_module  # noqa: E402
 from nawc_tpu_torch.models.spread_spectrum import _NULL_OFFSETS  # noqa: E402
+from nawc_tpu_torch.attacks.pgd import _grad  # noqa: E402
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
 from nawc_tpu_torch.utils import jaxrand  # noqa: E402
@@ -597,6 +623,172 @@ def sweep(codec, dev, sizes=((16, 4.0), (16, 2.0), (8, 4.0))) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+def bf16_codec(codec, codec16, marked: torch.Tensor) -> dict:
+    """Codes of the bf16 codec against the f32 codec's on the padded marked
+    batch, per level, and the bf16 decode of the f32 codes against the f32
+    decode."""
+    x = codec.pad(marked)
+    with torch.no_grad():
+        c32, c16 = codec.encode(x), codec16.encode(x)
+        y32, y16 = codec.decode(c32), codec16.decode(c32)
+    agree = [float((a == b).float().mean()) for a, b in zip(c32, c16)]
+    rel = float(((y32 - y16) ** 2).mean().sqrt() / ((y32 ** 2).mean().sqrt() + 1e-9))
+    print(f"bf16 vs f32 code agreement per level {[round(a, 4) for a in agree]} (mean "
+          f"{np.mean(agree):.4f}, JAX's bar 0.94); decode rel-rms {rel:.4g} (bar 0.1)")
+    check(float(np.mean(agree)) > 0.94, f"bf16 code agreement {agree} not above 0.94")
+    check(rel < 0.1, f"bf16 decode rel-rms {rel} not under 0.1")
+    check(bool(torch.isfinite(y16).all()), "bf16 decode is not finite")
+    return dict(agree=agree, rel=rel)
+
+
+# ------------------------------------------------------------------ phase 10
+
+LATENT_METHODS = ("semantic_pca", "semantic_cluster", "semantic_random", "token_green")
+
+
+class TimedEmbed:
+    """A watermarker whose every embed is timed (synchronised) and measured
+    for peak device memory; the last marked batch is kept."""
+
+    def __init__(self, wm):
+        self.wm, self.walls, self.peaks, self.marked = wm, [], [], None
+        self.name, self.sample_rate, self.n_bits = wm.name, wm.sample_rate, wm.n_bits
+
+    def embed(self, wav, msg=None, key=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        self.marked = self.wm.embed(wav)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        return self.marked
+
+    def score(self, wav, msg=None):
+        return self.wm.score(wav)
+
+    def detect(self, wav):
+        return self.wm.detect(wav)
+
+
+def embed_steps(wm) -> int:
+    return wm.scfg.steps if hasattr(wm, "scfg") else wm.steps
+
+
+def step_by_kind(wm, x: torch.Tensor, steps: int = 10) -> dict[str, float]:
+    """Device ms per Adam step by kind: one `steps`-step embed of the same
+    method without the spectral projection, under ``torch.profiler``."""
+    short = (dataclasses.replace(wm, cfg=dataclasses.replace(wm.scfg, steps=steps, lsd_weight=0.0))
+             if hasattr(wm, "scfg") else dataclasses.replace(wm, steps=steps))
+    short.embed(x)  # warm cuDNN's plans for this shape
+    return {k: v / steps for k, v in by_kind(device_events(lambda: short.embed(x))).items()}
+
+
+def codec_latent(codec, dev, n_clips: int = 4, seconds: float = 2.0, steps: int | None = None) -> dict:
+    """Phase 10; `steps` replaces the operating point's 300 Adam steps
+    (for a rehearsal on the CPU only)."""
+    wav16 = torch.as_tensor(np.stack(speech_clips(n_clips, seconds, 16_000, seed=13)), device=dev)
+    wav24 = resample(wav16, 16_000, 24_000)  # as cli/benchmark.py feeds the codec-latent methods
+    wms = build_watermarkers(list(LATENT_METHODS), codec)
+    if steps is not None:
+        wms = {n: dataclasses.replace(w, cfg=dataclasses.replace(w.scfg, steps=steps))
+               if hasattr(w, "scfg") else dataclasses.replace(w, steps=steps) for n, w in wms.items()}
+    timed = {n: TimedEmbed(w) for n, w in wms.items()}
+    suite = build_suite(24_000, codec)
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(codec_api, "rvq_encode_fused") as rf, Recorder(codec_model, "nearest_codebook") as lk:
+        rep = run_combined(timed, suite, wav24, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    print(f"codec-latent run_combined ({n_clips} x {seconds} s, {len(suite)} attacks): wall {wall:.1f} s; "
+          f"launches {launches}")
+    for n in ("rvq_encode_fused", "nearest_codebook"):
+        check(launches[n] > 0, f"codec-latent run: kernel {n} was not launched")
+    errors = [r for r in rep.per_method + rep.summary if "error" in r]
+    check(not errors, f"codec-latent run: error rows: {errors[:2]}")
+    mism = frames = 0
+    shapes: dict = {}
+    for (z, quantizer, strides), codes in rf.calls:
+        m, f, _ = parity.compare_rvq(codes, z, quantizer, strides)
+        mism, frames = mism + m, frames + f
+        shapes[tuple(z.shape)] = shapes.get(tuple(z.shape), 0) + 1
+    lookups = check_lookup_calls(lk.calls)
+    print(f"  rvq_encode_fused calls by z shape {shapes}: {mism} of {frames} codes differ from plain "
+          f"(near-ties); nearest_codebook calls {lookups['shapes']}: {lookups['near_codes']} of "
+          f"{lookups['frames']} differ (near-ties)")
+    tg = timed["token_green"]
+    with torch.no_grad():
+        s_k = tg.score(tg.marked)
+        with _lib.plain_versions():
+            s_p = tg.score(tg.marked)
+    err = float((s_k - s_p).abs().max())
+    print(f"  token_green score on the same marked audio, kernel vs plain route: max diff {err:.3g}")
+    check(err == 0.0 or mism > 0, "token_green: score differs from the plain route without a near-tie")
+    summary = {r["watermark"]: r for r in rep.summary}
+    out = {"launches": launches, "wall": wall}
+    for n, t in timed.items():
+        det = [r for r in rep.per_method if r["watermark"] == n and "score_before" in r]
+        srv = [r for r in rep.per_method if r["watermark"] == n and "attack" in r]
+        surv = {a: mean_of([r for r in srv if r["attack"] == a], "survived") for a in ("dac", "encodec")}
+        k = embed_steps(t.wm)
+        print(f"{n}: embed walls {[round(w, 2) for w in t.walls]} s for {k} steps "
+              f"({1e3 * t.walls[-1] / k:.1f} ms per step, last embed); peak memory of one embed "
+              f"{max(t.peaks):.2f} GiB; scores clean {mean_of(det, 'score_before'):.4f} marked "
+              f"{mean_of(det, 'score_after'):.4f}; SI-SNR {mean_of(srv, 'sisnr_wm'):.2f} dB; "
+              f"detector pass rate {summary[n]['detector_pass_rate']:.3f}; survival dac "
+              f"{surv['dac']:.3f}, encodec {surv['encodec']:.3f}")
+        out[n] = dict(ms_per_step=1e3 * t.walls[-1] / k, peak_gib=max(t.peaks))
+    for n in ("semantic_pca", "token_green"):
+        kinds = step_by_kind(timed[n].wm, wav24)
+        print(f"{n}: device ms per Adam step by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    return out
+
+
+# ------------------------------------------------------------------ phase 11
+
+def pgd_phase(dev, n_clips: int = 8, seconds: float = 2.0, steps: int = 100) -> dict:
+    """``cli/pgd.py --mode attack`` at its defaults, on speech-like clips."""
+    wm = build_watermarkers(["spread_spectrum"])["spread_spectrum"]
+    wav = torch.as_tensor(np.stack(speech_clips(n_clips, seconds, 16_000, seed=14)), device=dev)
+    msg = random_message(jaxrand.prng_key(0), n_clips, wm.n_bits, device=dev)
+    with torch.no_grad():
+        marked = wm.embed(wav, msg)
+    score_fn = lambda w: wm.score(w, msg)  # noqa: E731
+    g_k = _grad(lambda d: score_fn(marked + d).sum(), torch.zeros_like(marked))
+    with _lib.plain_versions():
+        g_p = _grad(lambda d: score_fn(marked + d).sum(), torch.zeros_like(marked))
+    gerr, scale = float((g_k - g_p).abs().max()), float(g_p.abs().max())
+    flips = int((torch.sign(g_k) != torch.sign(g_p)).sum())
+    print(f"pgd: one step's gradient through the kernel vs the plain route: max diff {gerr:.3g} "
+          f"(scale {scale:.3g}), {flips} of {g_p.numel()} signs differ")
+    # the score is nonlinear in z, so dscore/dz carries the kernel's z error
+    # (within Z_TOL of plain) into the gradient
+    check(gerr <= 1e-4 * scale, f"pgd gradient differs from plain by {gerr} (scale {scale})")
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    attacked = pgd_attack(score_fn, marked, steps=steps, eps=0.02, lr=0.001)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    with torch.no_grad():
+        before, after = score_fn(marked), score_fn(attacked)
+        snr = si_snr(marked, attacked)
+    print(f"pgd {n_clips} x {seconds} s, {steps} steps: wall {wall:.2f} s ({1e3 * wall / steps:.2f} ms "
+          f"per step); launches {launches}; score before {float(before.mean()):.4f} after "
+          f"{float(after.mean()):.4f}; SI-SNR {float(snr.mean()):.2f} dB; max|delta| "
+          f"{float((attacked - marked).abs().max()):.4f}")
+    check(launches["whiten_correlate"] >= steps, "pgd: the sswm kernel did not run in every step")
+    check(float((attacked - marked).abs().max()) <= 0.02 + 1e-6, "pgd: |delta| above eps")
+    check(bool(torch.isfinite(attacked).all()), "pgd: attacked audio not finite")
+    return dict(launches=launches, wall=wall)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -749,6 +941,35 @@ def main() -> int:
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
 
+    with phase("9 bf16 codec"):
+        codec16 = load_codec(CHECKPOINT, CodecConfig(compute_dtype="bfloat16"), device=dev)
+        _lib.reset_launches()
+        bf16 = bf16_codec(codec, codec16, marked)
+        bf16_launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+        with torch.no_grad():
+            def step16(x):
+                m = wm.embed(x, msg)
+                c = codec16.encode(codec16.pad(m))
+                p, b = wm.detect(m)
+                eps = (c[0].float().mean() + p.mean() + b.float().mean()) * 1e-4
+                return torch.roll(m, 1, dims=0) * (1.0 + eps)
+
+            ms16 = chained_ms(step16, wav)
+            enc16 = chained_ms(
+                lambda x: x * (1.0 + codec16.encode(codec16.pad(x))[0].float().mean() * 1e-6), marked)
+        print(f"embed + bf16 encode + detect, {BATCH} x {SECONDS} s: {ms16:.3f} ms per batch "
+              f"({BATCH * SECONDS / (ms16 / 1e3):.1f}x real time), float32 {ms_batch:.3f} ms; "
+              f"bf16 codec encode {enc16:.3f} ms, float32 {stage_ms['codec encode']:.3f} ms")
+        print(f"launches in the bf16 checks: {bf16_launches}")
+        check(bf16_launches["rvq_encode_fused"] > 0, "bf16 encode did not launch rvq_encode_fused")
+        del codec16
+
+    with phase("10 codec-latent watermarks"):
+        latent = codec_latent(codec, dev)
+
+    with phase("11 pgd"):
+        pgd = pgd_phase(dev)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
@@ -762,6 +983,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "sweep_launches": sweep_launches[n],
+            "bf16_launches": bf16_launches[n],
+            "codec_latent_launches": latent["launches"][n],
+            "pgd_launches": pgd["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

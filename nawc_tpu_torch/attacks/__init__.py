@@ -22,6 +22,7 @@ from .codec import (
     latent_transform_attack,
     layer_ablation,
 )
+from .pgd import pgd_attack, project_to_nullspace, subspace_pgd_attack
 
 AttackFn = Callable[[torch.Tensor, np.ndarray], torch.Tensor]
 
@@ -68,4 +69,7 @@ __all__ = [
     "ablation_masks",
     "latent_roundtrip",
     "latent_transform_attack",
+    "pgd_attack",
+    "project_to_nullspace",
+    "subspace_pgd_attack",
 ]

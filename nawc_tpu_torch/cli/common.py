@@ -19,8 +19,23 @@ WM_CHOICES = (
     "semantic_pca", "semantic_cluster", "semantic_random",
     "token_green", "neural",
 )
-# the families the port has; the others are queued in ROADMAP.md (A6)
-PORTED = ("spread_spectrum", "chunked", "psychoacoustic")
+# the families the port has; ``neural`` is queued in ROADMAP.md (A6.4)
+PORTED = WM_CHOICES[:-1]
+_SEMANTIC_AXES = {"semantic_pca": "pca", "semantic_cluster": "kmeans", "semantic_random": "random"}
+
+
+def load_audio_batch(
+    audio_glob: str,
+    count: int,
+    sr: int,
+    seconds: float = 2.0,
+    offset: int = 0,
+) -> torch.Tensor:
+    """`count` clips as one (count, seconds * sr) CPU batch: mono,
+    resampled to `sr`, truncated or zero-padded."""
+    t = int(seconds * sr)
+    clips = load_audio_clips(audio_glob, count, sr, seconds, offset)
+    return torch.from_numpy(np.stack([np.pad(c, (0, t - len(c))) for c in clips]))
 
 
 def load_audio_clips(
@@ -70,8 +85,9 @@ def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device 
 
 
 def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = None) -> dict[str, object]:
-    """Name -> watermarker instance, for the families the port has."""
-    from ..models import ChunkedWM, PsychoacousticWM, SpreadSpectrumWM
+    """Name -> watermarker instance, for the families the port has; the
+    codec-latent ones need a codec."""
+    from ..models import ChunkedWM, PsychoacousticWM, SemanticWM, SpreadSpectrumWM, TokenGreenWM
     from ..utils.config import SpreadSpectrumConfig
 
     out: dict[str, object] = {}
@@ -85,9 +101,17 @@ def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = N
             out[n] = ChunkedWM()
         elif n == "psychoacoustic":
             out[n] = PsychoacousticWM()
+        elif n == "token_green":
+            if codec is None:
+                raise SystemExit(f"{n} requires a codec")
+            out[n] = TokenGreenWM(codec)
+        elif n in _SEMANTIC_AXES:
+            if codec is None:
+                raise SystemExit(f"{n} requires --codec_ckpt / codec")
+            out[n] = SemanticWM(codec, _SEMANTIC_AXES[n])
         elif n in WM_CHOICES:
             raise SystemExit(f"watermark {n!r} is not ported to nawc_tpu_torch yet "
-                             f"(ROADMAP.md A6); ported: {PORTED}")
+                             f"(ROADMAP.md A6.4); ported: {PORTED}")
         else:
             raise SystemExit(f"unknown watermark {n!r}; choices: {WM_CHOICES}")
     return out

@@ -6,6 +6,10 @@ Submodules are named as flax names them (``Conv_0``, ``Snake_1``,
 checkpoint onto these modules by walking its paths.  Convolutions reproduce
 flax's "SAME" padding: for output length ceil(T / stride) the total padding
 is split with the smaller half on the left.
+
+Every block computes in the dtype of its input, as flax's ``dtype=`` does:
+the convolutions cast their float32 weights to it, so a bfloat16 input runs
+the whole block in bfloat16.
 """
 
 from __future__ import annotations
@@ -17,6 +21,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 _INV_PI = 1.0 / math.pi
+
+
+def _conv(op, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *args) -> torch.Tensor:
+    """``op(x, weight, bias, *args)`` in the dtype of `x`.  A bfloat16 conv
+    on the CPU runs as a float32 conv of the bfloat16 values, rounded once,
+    then the bias added in bfloat16, as XLA's CPU computes flax's conv: the
+    oneDNN bfloat16 conv of PyTorch's CPU build returns wrong values at some
+    strided shapes (stride 4, kernel 8)."""
+    w, b = weight.to(x.dtype), bias.to(x.dtype)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return op(x.float(), w.float(), None, *args).to(x.dtype) + b[:, None]
+    return op(x, w, b, *args)
 
 
 def _sin2_periodic(z: torch.Tensor) -> torch.Tensor:
@@ -43,7 +59,10 @@ class Snake(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         alpha = torch.exp(self.log_alpha).to(x.dtype)[None, :, None]
-        return x + _sin2_periodic(alpha * x) / (alpha + 1e-9)
+        # alpha * x stays float32 in a bfloat16 Snake: XLA drops the product's
+        # rounding before the float32 range reduction, and the port follows
+        s2 = _sin2_periodic(alpha.float() * x.float()).to(x.dtype)
+        return x + s2 / (alpha + 1e-9)
 
 
 class SameConv1d(nn.Conv1d):
@@ -56,7 +75,7 @@ class SameConv1d(nn.Conv1d):
         total = max((out - 1) * s + d * (k - 1) + 1 - t, 0)
         if total:
             x = F.pad(x, (total // 2, total - total // 2))
-        return F.conv1d(x, self.weight, self.bias, s, 0, d)
+        return _conv(F.conv1d, x, self.weight, self.bias, s, 0, d)
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):
@@ -68,6 +87,9 @@ class SameConvTranspose1d(nn.ConvTranspose1d):
         if stride % 2:
             raise NotImplementedError("the SAME transposed conv is ported for even strides")
         super().__init__(in_ch, out_ch, 2 * stride, stride=stride, padding=stride // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride, self.padding)
 
 
 class ResidualUnit(nn.Module):
@@ -99,8 +121,8 @@ class EncoderBlock(nn.Module):
 
 class DecoderBlock(nn.Module):
     """Decoder upsampling block.  The JAX block's ``NoiseBlock`` is off on
-    every path of the codec (``use_noise=False``), so it is not ported: with
-    no noise it is the identity."""
+    every path of the codec (``use_noise=False``, in float32 and bfloat16
+    alike), so it is not ported: with no noise it is the identity."""
 
     def __init__(self, in_dim: int, out_dim: int, stride: int):
         super().__init__()

@@ -4,6 +4,13 @@
 Public methods keep the JAX package's layouts: waveforms (B, T), latents
 (B, T', latent_dim), codes [(B, T'/stride_i)].  Inside, convolutions run in
 (B, C, T).  Module names follow flax's (``level_0``, ``EncoderBlock_2``, ...).
+
+The encoder and decoder compute in ``cfg.compute_dtype`` as the JAX modules
+do: a bfloat16 codec casts the waveform (encoder) or the latent (decoder) to
+bfloat16 and runs every conv and Snake in it; the latent comes out float32,
+and the decoder's last conv and ``tanh`` run in float32 (flax promotes that
+conv, which has no ``dtype``, to its float32 kernel).  The residual VQ is
+float32 in both.
 """
 
 from __future__ import annotations
@@ -29,14 +36,15 @@ class Encoder(nn.Module):
         self.Snake_0 = Snake(dim)
         self.Conv_1 = SameConv1d(dim, cfg.latent_dim, 3)
         self.n_blocks = len(cfg.encoder_rates)
+        self.dtype = cfg.compute_torch_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T) waveform -> (B, T/hop, latent_dim) latents."""
-        h = self.Conv_0(x[:, None, :])
+        """(B, T) waveform -> (B, T/hop, latent_dim) float32 latents."""
+        h = self.Conv_0(x[:, None, :].to(self.dtype))
         for i in range(self.n_blocks):
             h = getattr(self, f"EncoderBlock_{i}")(h)
         h = self.Conv_1(self.Snake_0(h))
-        return h.transpose(1, 2)
+        return h.transpose(1, 2).float()
 
 
 class Decoder(nn.Module):
@@ -50,13 +58,14 @@ class Decoder(nn.Module):
         self.Snake_0 = Snake(dim)
         self.Conv_1 = SameConv1d(dim, 1, 7)
         self.n_blocks = len(cfg.decoder_rates)
+        self.dtype = cfg.compute_torch_dtype
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, T/hop, latent_dim) -> (B, T) waveform in [-1, 1]."""
-        h = self.Conv_0(z.transpose(1, 2))
+        """(B, T/hop, latent_dim) -> (B, T) float32 waveform in [-1, 1]."""
+        h = self.Conv_0(z.transpose(1, 2).to(self.dtype))
         for i in range(self.n_blocks):
             h = getattr(self, f"DecoderBlock_{i}")(h)
-        h = self.Conv_1(self.Snake_0(h))
+        h = self.Conv_1(self.Snake_0(h).float())
         return torch.tanh(h)[:, 0]
 
 
@@ -155,8 +164,6 @@ class SnacCodec(nn.Module):
 
     def __init__(self, cfg: CodecConfig = CodecConfig()):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port runs the codec in float32 only")
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.quantizer = ResidualVQ(cfg)

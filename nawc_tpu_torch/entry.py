@@ -16,7 +16,7 @@ from .attacks.codec import codec_roundtrip
 from .codec.api import CodecState, make_codec
 from .models.spread_spectrum import SpreadSpectrumWM
 from .utils.config import CodecConfig, SpreadSpectrumConfig
-from .utils.device import resolve_device
+from .utils.device import float32_parity, resolve_device
 
 
 def flagship(codec: CodecState | None = None, device: str | torch.device = "cuda",
@@ -33,8 +33,7 @@ def flagship(codec: CodecState | None = None, device: str | torch.device = "cuda
 def entry(codec: CodecState | None = None, device: str | torch.device = "cuda"):
     """-> (fn, example_args); ``fn(wav, msg) -> (marked, presence, bits)``."""
     dev = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_parity()
     codec, wm = flagship(codec, dev)
     sr = codec.cfg.sample_rate
 

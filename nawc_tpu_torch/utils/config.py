@@ -1,7 +1,7 @@
 """Configuration dataclasses of the main path, field for field as in
 ``nawc_tpu/utils/config.py`` with the same defaults.
 
-Only the three configs the port's main path reads are here.  The JAX
+Only the configs of the families the port has are here.  The JAX
 package's ``compute_jnp_dtype`` becomes :attr:`CodecConfig.compute_torch_dtype`.
 """
 
@@ -31,8 +31,7 @@ class CodecConfig:
     """SNAC-style codec (conv encoder -> multi-scale RVQ -> conv decoder)."""
 
     sample_rate: int = 24_000
-    # conv compute dtype ("bfloat16" | "float32"); the port runs float32
-    # only (the bf16 path is queued in ROADMAP.md)
+    # conv compute dtype ("bfloat16" | "float32")
     compute_dtype: str = "float32"
     encoder_dim: int = 48
     encoder_rates: Tuple[int, ...] = (2, 4, 8, 8)
@@ -82,3 +81,36 @@ class SpreadSpectrumConfig:
     mask_quantile: float = 0.0
     mask_lo_quantile: float = 0.0
     mask_softness: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SemanticWMConfig:
+    """Semantic manifold watermark hyperparameters; see
+    ``nawc_tpu/utils/config.py`` for the reasoning behind each field.
+
+    ``max_steps_per_dispatch`` is kept for field parity and read by
+    nothing: it bounds one XLA dispatch on the TPU, and the port's Adam
+    loop has no dispatch to bound."""
+
+    steps: int = 150
+    lr: float = 5e-3
+    eps: float = 5e-3
+    dynamic_eps: bool = False
+    target_sdr_db: float = 42.0
+    eps_min: float = 1e-4
+    eps_max: float = 0.1
+    target_score: float = 1.5
+    silence_threshold: float = 0.02
+    detect_threshold: float = 0.85
+    pn_seed: int = 7
+    ma_window: int = 9
+    score_scale: float = 0.28
+    cap_mult: float = 6.0
+    # > 0 enables the gradient-free spectral projection between phases
+    lsd_weight: float = 0.0
+    proj_headroom_db: float = 14.0
+    n_proj_phases: int = 4
+    proj_free_above_hz: float = 8000.0
+    proj_stoi_extra_db: float = 0.0
+    proj_stoi_hz: float = 4500.0
+    max_steps_per_dispatch: int = 75

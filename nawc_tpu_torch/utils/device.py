@@ -19,3 +19,10 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def float32_parity() -> None:
+    """Turn TF32 off for cuDNN and cuBLAS, for the whole process: they
+    default to TF32, which breaks float32 parity with the JAX reference."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -4,7 +4,8 @@ The spread-spectrum PN patterns are drawn with
 ``bernoulli(fold_in(PRNGKey(seed), b), 0.5, shape)``.  A mark made by one
 package is readable by the other only if both draw the same bits, so this
 module reproduces jax's threefry2x32 hash, ``PRNGKey``, ``fold_in``,
-``split``, ``random_bits``, ``uniform``, ``normal`` and ``bernoulli`` under
+``split``, ``random_bits``, ``uniform``, ``normal``, ``bernoulli``,
+``permutation`` and ``choice`` (without replacement) under
 ``jax_threefry_partitionable=True`` (the default of jax 0.9).  The keyed
 attacks draw their noise here too, so that they draw what JAX draws.
 Everything is uint32 and float32 arithmetic in numpy, on the host.
@@ -194,3 +195,22 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
 def bernoulli(key: np.ndarray, p: float, shape: tuple[int, ...]) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)`` with a float32 `p`."""
     return _unit_uniform(key, shape) < np.float32(p)
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int32) shuffled by
+    rounds of a stable sort keyed by 32 random bits, as jax's ``_shuffle``
+    does; each round splits the key and draws with the second half."""
+    x = np.arange(n, dtype=np.int32)
+    # jax's round count: ceil(3 ln n / ln(2^32 - 1)), 2 rounds for n = 4096
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace=False)``: the first
+    ``prod(shape)`` entries of :func:`permutation`."""
+    return permutation(key, n)[: int(np.prod(shape, dtype=np.int64))].reshape(shape)

@@ -127,7 +127,12 @@ import nawc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(nawc_tpu_torch.__path__, "nawc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the codec-latent families, PGD and the CLIs that load them lazily are walked too
+assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
+        "nawc_tpu_torch.models.resampled", "nawc_tpu_torch.attacks.pgd",
+        "nawc_tpu_torch.cli.benchmark", "nawc_tpu_torch.cli.watermark"} <= set(names)
 import chip_smoke
+assert callable(chip_smoke.codec_latent) and callable(chip_smoke.pgd_phase)
 from nawc_tpu_torch.codec import make_codec
 from nawc_tpu_torch.entry import entry
 from nawc_tpu_torch.utils.config import CodecConfig

@@ -99,6 +99,39 @@ def test_chunked_matches_jax():
     assert tw.score(t(m_t), t(msg)).min() == 1.0
 
 
+# ------------------------------------------------------------------ resampled
+
+def test_resampled_chunked_matches_jax():
+    """The chunked watermark presented at 24 kHz: embed (resampled down,
+    embedded, resampled up, cut to length), detect and score."""
+    from nawc_tpu.models import at_rate as jax_at_rate
+
+    from nawc_tpu_torch.models import ResampledWM, at_rate
+
+    jw, tw = jax_at_rate(JaxChunked(), 24_000), at_rate(ChunkedWM(), 24_000)
+    assert isinstance(tw, ResampledWM) and at_rate(tw.inner, 16_000) is tw.inner
+    assert (tw.name, tw.n_bits, tw.sample_rate) == (jw.name, jw.n_bits, 24_000)
+    wav = _speech(24_000, 2.0, 2, seed=7)
+    msg = np.random.default_rng(8).integers(0, 2, (2, 16)).astype(np.int32)
+    m_j = np.asarray(jw.embed(jnp.asarray(wav), jnp.asarray(msg)))
+    m_t = tw.embed(t(wav), t(msg)).numpy()
+    assert m_t.shape == wav.shape
+    np.testing.assert_allclose(m_t, m_j, atol=1e-5)
+    with pytest.raises(ValueError, match="msg is required"):
+        tw.embed(t(wav))
+    for x in (m_j, wav):
+        z = np.asarray(jw.inner._chunk_z(jw._down(jnp.asarray(x)))).sum(1) / np.sqrt(2.0)
+        p_j, b_j = jw.detect(jnp.asarray(x))
+        p_t, b_t = tw.detect(t(x))
+        _bits_equal_where_sure(b_t.numpy(), b_j, z)
+        np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=P_TOL)
+        np.testing.assert_allclose(tw.score(t(x), t(msg)).numpy(),
+                                   np.asarray(jw.score(jnp.asarray(x), jnp.asarray(msg))))
+        np.testing.assert_allclose(tw.score(t(x)).numpy(), np.asarray(jw.score(jnp.asarray(x))),
+                                   atol=P_TOL)
+    assert tw.score(t(m_t), t(msg)).min() == 1.0
+
+
 # ------------------------------------------------------------------ psychoacoustic
 
 @pytest.fixture(scope="module")

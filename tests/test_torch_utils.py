@@ -22,7 +22,8 @@ from nawc_tpu_torch.utils import config as tcfg
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / "codec_24k.msgpack"
 
 
-@pytest.mark.parametrize("name", ["StftConfig", "CodecConfig", "SpreadSpectrumConfig"])
+@pytest.mark.parametrize("name", ["StftConfig", "CodecConfig", "SpreadSpectrumConfig",
+                                  "SemanticWMConfig"])
 def test_config_fields_and_defaults(name):
     jc, tc = getattr(jcfg, name)(), getattr(tcfg, name)()
     jf = [(f.name, f.default) for f in dataclasses.fields(jc)]
@@ -170,3 +171,18 @@ def test_erf_inv_and_log1p_match_xla():
         ulp = np.abs(ours.view(np.int32).astype(np.int64)
                      - np.asarray(theirs).view(np.int32).astype(np.int64))
         assert ulp.max() <= 1 and (ulp > 0).mean() < 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 100, 128, 1000, 4096])
+def test_permutation_and_choice_bit_for_bit(n):
+    """jax's shuffle: one stable sort by threefry bits per round, rounds
+    ceil(3 ln n / ln(2^32 - 1)) (1 up to n = 1625, 2 at 4096)."""
+    for seed in (0, 42, 7):
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+        got = jaxrand.permutation(jaxrand.prng_key(seed), n)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        k = min(n, 2)
+        np.testing.assert_array_equal(
+            jaxrand.choice(jaxrand.prng_key(seed), n, (k,)),
+            np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n, (k,), replace=False)))
