@@ -64,7 +64,27 @@ Phases, each printing its seconds:
 11. PGD: ``pgd_attack`` against the spread-spectrum score at ``cli/pgd.py``'s
    defaults (8 x 2 s at 16 kHz, 100 steps, eps 0.02, lr 0.001): the score
    before and after, the SI-SNR, the sswm launches (one forward per step),
-   and one step's gradient through the kernel against the plain route's.
+   and one step's gradient through the kernel against the plain route's;
+12. neural watermark: the trained ``checkpoints/neural_wm.msgpack`` at
+   ``NeuralWMConfig()`` on 16 speech-like clips x 4 s at 16 kHz: embed,
+   ``detect`` and ``detect_sync`` (clean-channel bit accuracy, presence on
+   marked and clean audio, a 200-sample delay) with ms per batch, then
+   ``run_robustness`` at ``cli/robustness.py``'s defaults without and with
+   sync, kernels against plain (every lookup of ``dac`` held against plain
+   on its own inputs, the rows equal, no ERROR row);
+13. training: ``train_wm`` (16 x 1 s, 24 steps, the trained codec as
+   ``--codec_ckpt`` on every 3rd step), ``train_codec`` (16 x 32768 at
+   24 kHz, 5 steps, a dead-code revival, 2 steps) and ``train_gan`` (16 x
+   32768, the trained codec, 3 steps) at the CLI defaults on speech-like
+   WAV files: each step's float metrics within 1e-5 relative of the same
+   step from a copy of the same state under the plain versions, every
+   lookup (codebooks moved by the optimiser and by the revival included)
+   equal to plain on a copy of its inputs, ms per step, peak memory, the
+   device split by kind and the losses; the GAN's encoder and quantizer
+   bit for bit unchanged, and a checkpoint written by ``save_params`` read
+   back equal; then ``train_wm``, ``train_codec`` and ``train_gan`` as a
+   user runs them, 2 steps each at their defaults, and ``eval_codec`` on
+   the fine-tuned codec.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -76,10 +96,12 @@ break parity with the JAX reference), and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,6 +118,7 @@ from nawc_tpu_torch.cli.common import build_watermarkers  # noqa: E402
 from nawc_tpu_torch.codec import api as codec_api  # noqa: E402
 from nawc_tpu_torch.codec import model as codec_model  # noqa: E402
 from nawc_tpu_torch.codec import load_codec  # noqa: E402
+from nawc_tpu_torch.codec.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from nawc_tpu_torch.codec.model import ResidualVQ  # noqa: E402
 from nawc_tpu_torch.entry import entry, flagship  # noqa: E402
 from nawc_tpu_torch.dsp.resample import resample  # noqa: E402
@@ -107,8 +130,16 @@ from nawc_tpu_torch.models.spread_spectrum import _NULL_OFFSETS  # noqa: E402
 from nawc_tpu_torch.attacks.pgd import _grad  # noqa: E402
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
+from nawc_tpu_torch.train.adversarial import (  # noqa: E402
+    decoder_only_tx, init_discriminators, make_gan_train_step)
+from nawc_tpu_torch.train.codec_train import (  # noqa: E402
+    init_codec_train, make_codec_train_step, revive_dead_codes, speech_batches, trainable_codec)
+from nawc_tpu_torch.train.optim import AdamW  # noqa: E402
+from nawc_tpu_torch.train.wm_train import init_wm_train, make_wm_train_step  # noqa: E402
 from nawc_tpu_torch.utils import jaxrand  # noqa: E402
-from nawc_tpu_torch.utils.config import CodecConfig, SpreadSpectrumConfig  # noqa: E402
+from nawc_tpu_torch.utils.audio_io import write_wav  # noqa: E402
+from nawc_tpu_torch.utils.checkpoint import load_params, save_params, tree_leaves  # noqa: E402
+from nawc_tpu_torch.utils.config import CodecConfig, NeuralWMConfig, SpreadSpectrumConfig  # noqa: E402
 
 CHECKPOINT = REPO / "checkpoints" / "codec_24k.msgpack"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
@@ -420,15 +451,20 @@ def speech_clips(n: int, seconds: float, sr: int, seed: int) -> list[np.ndarray]
 class Recorder(contextlib.AbstractContextManager):
     """Replaces `name` in `module` by a wrapper that keeps the arguments and
     the result of each call, so that each call of a kernel run can be held
-    against the plain version on the same inputs afterwards."""
+    against the plain version on the same inputs afterwards.  With `clone`
+    it keeps copies of the tensor arguments: a codebook in training moves
+    in place after the lookup that read it."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, clone: bool = False):
         self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.clone = clone
         self.calls: list = []
 
     def __enter__(self):
         def record(*args):
             out = self.orig(*args)
+            if self.clone:
+                args = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
             self.calls.append((args, out))
             return out
 
@@ -516,14 +552,16 @@ def compare_rows(label: str, got: list[dict], want: list[dict], near_events: int
     return off
 
 
-def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: dict | None = None
-              ) -> dict:
-    """`run()` once to warm up (cuDNN's and cuFFT's plans), then with the
+def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: dict | None = None,
+              warm: bool = True) -> dict:
+    """`run()` once to warm up (cuDNN's and cuFFT's plans; skipped when not
+    `warm`), then with the
     kernels (counts from 0, every sswm and lookup call recorded) and then
     with the plain versions; checks the calls, the kernels' launches, the
     rows and that no row holds an error.  `attack_s`, filled by a
     :func:`timed_suite` in `run`, keeps the kernel run's attack times."""
-    run()
+    if warm:
+        run()
     if attack_s is not None:
         attack_s.clear()
     _lib.reset_launches()
@@ -789,6 +827,262 @@ def pgd_phase(dev, n_clips: int = 8, seconds: float = 2.0, steps: int = 100) -> 
     return dict(launches=launches, wall=wall)
 
 
+# ------------------------------------------------------------------ phase 12
+
+NEURAL_CKPT = REPO / "checkpoints" / "neural_wm.msgpack"
+
+
+def neural_phase(codec, dev, n_clips: int = 16, seconds: float = 4.0, wm=None) -> dict:
+    """Phase 12: the trained neural watermark; `wm` replaces the checkpoint
+    (for a rehearsal on the CPU only)."""
+    if wm is None:
+        check(NEURAL_CKPT.exists(), f"{NEURAL_CKPT.relative_to(REPO)} is missing")
+        wm = build_watermarkers(["neural"], device=dev)["neural"]
+    clips = speech_clips(n_clips, seconds, 16_000, seed=15)
+    wav = torch.as_tensor(np.stack(clips), device=dev)
+    msg = random_message(jaxrand.prng_key(0), n_clips, wm.n_bits, device=dev)
+    with torch.no_grad():
+        marked = wm.embed(wav, msg)
+        pres, bits = wm.detect(marked)
+        pres_s, bits_s, offs = wm.detect_sync(marked)
+        pres_c, _ = wm.detect(wav)
+        # a 200-sample delay (12.5 ms): off the lattice, which detect_sync searches
+        pres_d, bits_d, offs_d = wm.detect_sync(torch.roll(marked, 200, dims=-1))
+        ms = {name: wall_ms(fn, iters=5, warmup=1) for name, fn in (
+            ("embed", lambda: wm.embed(wav, msg)), ("detect", lambda: wm.detect(marked)),
+            ("detect_sync", lambda: wm.detect_sync(marked)))}
+        snr = float(si_snr(wav, marked).mean())
+    acc, acc_s, acc_d = (float(bit_accuracy(b, msg).mean()) for b in (bits, bits_s, bits_d))
+    print(f"neural {n_clips} x {seconds} s: clean-channel bit accuracy {acc:.4f} (detect_sync "
+          f"{acc_s:.4f}, offsets {sorted(set(offs.tolist()))}); presence marked "
+          f"{float(pres.mean()):.4f}, clean {float(pres_c.mean()):.4f}; SI-SNR {snr:.2f} dB; "
+          f"delayed 200 samples: bit accuracy {acc_d:.4f}, offsets {sorted(set(offs_d.tolist()))}")
+    print("neural ms per batch: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    check(tuple(marked.shape) == tuple(wav.shape), f"neural marked shape {tuple(marked.shape)}")
+    check(all(bool(torch.isfinite(x).all()) for x in (marked, pres, pres_c, pres_s)),
+          "neural: non-finite output")
+    check(acc >= 0.95 and float(pres.mean()) > float(pres_c.mean()),
+          f"neural: clean-channel bit accuracy {acc}, presence marked {float(pres.mean())} "
+          f"against clean {float(pres_c.mean())}")
+    suite = build_suite(16_000, codec)
+    suite.pop("identity")
+    out = {"ms": ms, "acc": acc}
+    # the sync run without its warm-up run (the plans are warm from the
+    # first): it takes a minute a run
+    for label, sync in (("neural", False), ("neural sync", True)):
+        out[label] = sweep_run(label, lambda: run_robustness(wm, suite, clips, 16_000, 2.0, sync=sync,
+                                                             device=dev), 0.0, ("nearest_codebook",),
+                               warm=not sync)
+        print(f"  {label}: bitwise/clean {mean_of(out[label]['rows'], 'bitwise/clean'):.4f}, "
+              f"bitwise/distorted {mean_of(out[label]['rows'], 'bitwise/distorted'):.4f}")
+    out["launches"] = {n: out["neural"]["launches"][n] + out["neural sync"]["launches"][n]
+                       for n in _lib.KERNELS}
+    return out
+
+
+# ------------------------------------------------------------------ phase 13
+
+LOSS_RTOL = 1e-5
+
+
+def synced_ms(fn):
+    """-> (fn(), wall ms with the card synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def twin_step(label: str, state, step) -> tuple[dict, float, float]:
+    """One training step from `state` with the kernels, and the same step
+    from a copy of `state` with the plain versions: every float metric
+    within LOSS_RTOL relative.  -> (metrics, ms, peak GiB of the kernel
+    step)."""
+    ref = copy.deepcopy(state)
+    with _lib.plain_versions():
+        want = step(ref)
+    del ref
+    torch.cuda.reset_peak_memory_stats()
+    got, ms = synced_ms(lambda: step(state))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in want.items():
+        if v.numel() == 1:
+            a, b = float(got[k]), float(v)
+            check(np.isfinite(a), f"{label}: {k} = {a} is not finite")
+            check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-6),
+                  f"{label}: {k} {a} with the kernels against {b} plain")
+    return got, ms, peak
+
+
+def split_of(step, state) -> dict[str, float]:
+    """Device ms of one step, by kind, on a throwaway copy of `state`."""
+    return by_kind(device_events(lambda: step(copy.deepcopy(state))))
+
+
+def print_trainer(label: str, ms: dict, peak: float, split: dict, metrics: list[dict]) -> None:
+    print(f"{label}: ms per step " + ", ".join(f"{k} {np.mean(v):.1f} ({len(v)} steps)"
+                                                for k, v in ms.items())
+          + f"; peak memory {peak:.2f} GiB; device ms per step by kind: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    print(f"  {label} losses: " + " ".join(f"{float(m['loss']):.4f}" for m in metrics))
+
+
+def wm_trainer(dev, codec, files, steps: int = 24, batch: int = 16, seconds: float = 1.0) -> dict:
+    """``train_wm``'s defaults from the seeded init, with `codec` as
+    ``--codec_ckpt``: the codec branch on every 3rd step."""
+    cfg = NeuralWMConfig()
+    state = init_wm_train(0, cfg, lr=2e-4, weight_decay=1e-5, device=dev)
+    fns = {"dsp": make_wm_train_step(cfg), "codec": make_wm_train_step(cfg, codec=codec)}
+    batches = speech_batches(files, batch, seconds, cfg.sample_rate, seed=0)
+    key = jaxrand.prng_key(1)
+    t = int(seconds * cfg.sample_rate)
+    ms: dict = {"dsp": [], "codec": []}
+    metrics, peak = [], 0.0
+    with Recorder(codec_model, "nearest_codebook", clone=True) as lk:
+        for i in range(1, steps + 1):
+            wav = torch.from_numpy(next(batches)[:, :t]).to(dev)
+            key, km, kk = jaxrand.split(key, 3)
+            msg = random_message(km, batch, cfg.n_bits, device=dev)
+            branch = "codec" if i % 3 == 0 else "dsp"
+            m, dt, pk = twin_step(f"wm step {i}", state,
+                                  lambda s: fns[branch](s, wav, msg, kk, i))
+            ms[branch].append(dt)
+            metrics.append(m)
+            peak = max(peak, pk)
+    split = {b: split_of(lambda s: fns[b](s, wav, msg, kk, i), state) for b in fns}
+    lookups = check_lookup_calls(lk.calls)
+    print_trainer(f"wm trainer {batch} x {seconds} s", ms, peak, split["dsp"], metrics)
+    print("  codec-branch step device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(split["codec"].items(), key=lambda kv: -kv[1])))
+    print(f"  bit_acc {[round(float(m['bit_acc']), 3) for m in metrics]}; nearest_codebook calls "
+          f"{lookups['shapes']}: {lookups['near_codes']} of {lookups['frames']} differ (near-ties)")
+    return dict(ms=ms, peak=peak)
+
+
+def codec_trainer(dev, files, cfg: CodecConfig = CodecConfig(), steps=(5, 2), batch: int = 16,
+                  samples: int = 32_768) -> dict:
+    """``train_codec``'s defaults from the seeded init: `steps[0]` steps,
+    one dead-code revival, `steps[1]` more."""
+    state = init_codec_train(0, cfg, device=dev, lr=3e-4, total=20_000)
+    step = make_codec_train_step(cfg)
+    batches = speech_batches(files, batch, samples / cfg.sample_rate, cfg.sample_rate, seed=0)
+    usage = {i: np.zeros(cfg.codebook_size, np.int64) for i in range(cfg.num_levels)}
+    ms, metrics, peak, dead = {"step": []}, [], 0.0, None
+    with Recorder(codec_model, "nearest_codebook", clone=True) as lk:
+        for i in range(steps[0] + steps[1]):
+            if i == steps[0]:
+                versions = [lv.codebook._version for lv in state.model.quantizer.levels]
+                dead = revive_dead_codes(state.model, usage, cfg, np.random.default_rng(7))
+                moved = [lv.codebook._version > v for lv, v in zip(state.model.quantizer.levels, versions)]
+                print(f"  revived dead codes per level {dead}; codebook versions moved {moved}")
+            wav = torch.from_numpy(next(batches)[:, :samples]).to(dev)
+            m, dt, pk = twin_step(f"codec step {i + 1}", state, lambda s: step(s, wav))
+            for lv in range(cfg.num_levels):
+                usage[lv] += m[f"usage_{lv}"].cpu().numpy().astype(np.int64)
+            ms["step"].append(dt)
+            metrics.append(m)
+            peak = max(peak, pk)
+    lookups = check_lookup_calls(lk.calls)
+    print_trainer(f"codec trainer {batch} x {samples}", ms, peak, split_of(lambda s: step(s, wav), state),
+                  metrics)
+    print(f"  live codes {[int((u > 0).sum()) for u in usage.values()]}; nearest_codebook calls "
+          f"{lookups['shapes']}: {lookups['near_codes']} of {lookups['frames']} differ (near-ties), "
+          f"{len(lk.calls)} calls over {len(metrics)} steps")
+    return dict(ms=ms, peak=peak, dead=dead)
+
+
+def gan_trainer(dev, files, tree: dict, cfg: CodecConfig = CodecConfig(), steps: int = 3,
+                batch: int = 16, samples: int = 32_768) -> dict:
+    """``train_gan``'s defaults: the codec of `tree` (the trained checkpoint)
+    and the seeded discriminators; the encoder and quantizer must not move."""
+    model = trainable_codec(cfg, 0, dev, tree=tree)
+    disc = init_discriminators(1, dev)
+    g_opt = decoder_only_tx(model, lr=1e-4, b1=0.8, b2=0.99, weight_decay=1e-4)
+    d_opt = AdamW(disc.parameters(), 2e-4, b1=0.8, b2=0.99, weight_decay=1e-4)
+    step = make_gan_train_step(cfg)
+    state = (model, disc, g_opt, d_opt)
+    batches = speech_batches(files, batch, samples / cfg.sample_rate, cfg.sample_rate, seed=0)
+    ms, metrics, peak = {"step": []}, [], 0.0
+    with Recorder(codec_model, "nearest_codebook", clone=True) as lk:
+        for i in range(steps):
+            wav = torch.from_numpy(next(batches)[:, :samples]).to(dev)
+            m, dt, pk = twin_step(f"gan step {i + 1}", state, lambda s: step(*s, wav))
+            ms["step"].append(dt)
+            metrics.append(m)
+            peak = max(peak, pk)
+    lookups = check_lookup_calls(lk.calls)
+    print_trainer(f"GAN trainer {batch} x {samples}", ms, peak, split_of(lambda s: step(*s, wav), state),
+                  metrics)
+    print(f"  d_loss {[round(float(m['d_loss']), 4) for m in metrics]}; nearest_codebook calls "
+          f"{lookups['shapes']}: {lookups['near_codes']} of {lookups['frames']} differ (near-ties)")
+    before = flax_to_state_dict(tree, model)
+    after = model.state_dict()
+    frozen = [k for k in after if not k.startswith("decoder.")]
+    check(all(torch.equal(after[k].cpu(), before[k]) for k in frozen),
+          "GAN: the encoder or the quantizer moved")
+    moved = sum(not torch.equal(after[k].cpu(), before[k]) for k in after if k.startswith("decoder."))
+    print(f"  encoder and quantizer bit for bit unchanged ({len(frozen)} tensors); {moved} decoder "
+          "tensors moved")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "codec_gan.msgpack"
+        saved = state_dict_to_flax(model)
+        save_params(path, saved)
+        back, want = tree_leaves(load_params(path)), tree_leaves(saved)
+        check(list(back) == list(want) and all(np.array_equal(back[k], want[k]) for k in want),
+              "a checkpoint written by save_params does not read back equal")
+    print(f"  checkpoint of {len(want)} leaves written by save_params reads back equal")
+    return dict(ms=ms, peak=peak)
+
+
+def cli_runs(d: Path, cli_args: dict) -> None:
+    """Each training CLI for 2 steps at its defaults on the WAVs in `d`
+    (``eval_codec`` on the GAN's checkpoint): every log line finite, every
+    checkpoint readable; `cli_args` adds arguments per command (for a
+    rehearsal on the CPU only)."""
+    from nawc_tpu_torch.cli import eval_codec, train_codec, train_gan, train_wm
+
+    glob = ["--audio_glob", str(d / "*.wav"), "--steps", "2", "--log_every", "1"]
+    runs = [(train_wm, glob + ["--codec_ckpt", str(CHECKPOINT), "--out", str(d / "wm.msgpack")]),
+            (train_codec, glob + ["--out", str(d / "codec.msgpack")]),
+            (train_gan, glob + ["--resume", str(CHECKPOINT), "--val_files", "0",
+                                "--out", str(d / "gan.msgpack")])]
+    for mod, argv in runs:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        _, ms = synced_ms(lambda: mod.main(argv + cli_args.get(name, [])))
+        out = Path(argv[argv.index("--out") + 1])
+        lines = [json.loads(x) for x in out.with_suffix(".log.jsonl").read_text().splitlines()]
+        check(len(lines) == 2 and all(np.isfinite(v) for x in lines for v in x.values()
+                                      if isinstance(v, float)), f"{name}: log lines {lines}")
+        check(len(tree_leaves(load_params(out))) > 0, f"{name}: checkpoint {out} unreadable")
+        print(f"cli {name}: 2 steps in {ms / 1e3:.1f} s; losses {[round(x['loss'], 4) for x in lines]}")
+    eval_codec.main(["--ckpt", str(d / "gan.msgpack"), "--audio_glob", str(d / "*.wav"), "--offset", "0",
+                     "--filecount", "4"] + cli_args.get("eval_codec", []))
+
+
+def training_phase(dev, codec, tree: dict, sizes: dict | None = None,
+                   cli_args: dict | None = None) -> dict:
+    """Phase 13: the three trainers at the CLI defaults, on speech-like WAV
+    files written to a temporary directory, then each training CLI for 2
+    steps; `sizes` and `cli_args` override the defaults (for a rehearsal on
+    the CPU only)."""
+    sizes = sizes or {}
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for i, clip in enumerate(speech_clips(8, 4.0, 24_000, seed=16)):
+            files.append(str(Path(d) / f"speech{i}.wav"))
+            write_wav(files[-1], clip, 24_000)
+        _lib.reset_launches()
+        out = {"wm": wm_trainer(dev, codec, files, **sizes.get("wm", {})),
+               "codec": codec_trainer(dev, files, **sizes.get("codec", {})),
+               "gan": gan_trainer(dev, files, tree, **sizes.get("gan", {}))}
+        cli_runs(Path(d), cli_args or {})
+    out["launches"] = {n: k.launches for n, k in _lib.KERNELS.items()}
+    print(f"launches in the trainers' kernel steps: {out['launches']}")
+    check(out["launches"]["nearest_codebook"] > 0, "training: nearest_codebook was not launched")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -970,6 +1264,12 @@ def main() -> int:
     with phase("11 pgd"):
         pgd = pgd_phase(dev)
 
+    with phase("12 neural watermark"):
+        neural = neural_phase(codec, dev)
+
+    with phase("13 training"):
+        train = training_phase(dev, codec, load_params(CHECKPOINT))
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
@@ -986,6 +1286,8 @@ def main() -> int:
             "bf16_launches": bf16_launches[n],
             "codec_latent_launches": latent["launches"][n],
             "pgd_launches": pgd["launches"][n],
+            "neural_launches": neural["launches"][n],
+            "train_launches": train["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -119,7 +119,8 @@ def main(argv=None) -> None:
     codec = load_codec(args.codec_ckpt, args.codec_size, device=dev) if needs_codec else None
     sr = args.sample_rate
     wav = load_audio_batch(args.audio_glob, args.filecount, sr, args.seconds).to(dev)
-    wms = build_watermarkers(args.watermarks, codec, sample_rate=None if sr == 16_000 else sr)
+    wms = build_watermarkers(args.watermarks, codec, sample_rate=None if sr == 16_000 else sr,
+                             device=dev)
 
     # each method gets audio and attacks at its own native rate
     groups: dict[int, dict[str, object]] = {}

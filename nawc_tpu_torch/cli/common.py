@@ -19,8 +19,7 @@ WM_CHOICES = (
     "semantic_pca", "semantic_cluster", "semantic_random",
     "token_green", "neural",
 )
-# the families the port has; ``neural`` is queued in ROADMAP.md (A6.4)
-PORTED = WM_CHOICES[:-1]
+NEURAL_CKPT = "checkpoints/neural_wm.msgpack"
 _SEMANTIC_AXES = {"semantic_pca": "pca", "semantic_cluster": "kmeans", "semantic_random": "random"}
 
 
@@ -84,9 +83,12 @@ def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device 
     return codec
 
 
-def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = None) -> dict[str, object]:
-    """Name -> watermarker instance, for the families the port has; the
-    codec-latent ones need a codec."""
+def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = None,
+                       device: str | torch.device | None = None) -> dict[str, object]:
+    """Name -> watermarker instance; the codec-latent ones need a codec.
+    ``neural`` holds its networks on `device` (the codec's device when
+    None, else the GPU): the trained ``checkpoints/neural_wm.msgpack`` when
+    it exists, else JAX's seed-0 init."""
     from ..models import ChunkedWM, PsychoacousticWM, SemanticWM, SpreadSpectrumWM, TokenGreenWM
     from ..utils.config import SpreadSpectrumConfig
 
@@ -109,9 +111,16 @@ def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = N
             if codec is None:
                 raise SystemExit(f"{n} requires --codec_ckpt / codec")
             out[n] = SemanticWM(codec, _SEMANTIC_AXES[n])
-        elif n in WM_CHOICES:
-            raise SystemExit(f"watermark {n!r} is not ported to nawc_tpu_torch yet "
-                             f"(ROADMAP.md A6.4); ported: {PORTED}")
+        elif n == "neural":
+            from ..models.neural import init_neural_wm, load_neural_wm
+
+            dev = device if device is not None else codec.device if codec is not None else "cuda"
+            if Path(NEURAL_CKPT).exists():
+                out[n] = load_neural_wm(NEURAL_CKPT, device=dev)
+                print(f"[neural] restored weights from {NEURAL_CKPT}")
+            else:
+                print("[neural] WARNING: no checkpoint; random weights (train with cli.train_wm)")
+                out[n] = init_neural_wm(0, device=dev)
         else:
             raise SystemExit(f"unknown watermark {n!r}; choices: {WM_CHOICES}")
     return out

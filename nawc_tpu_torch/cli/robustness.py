@@ -66,7 +66,7 @@ def main(argv=None) -> None:
     codec = load_codec(args.codec_ckpt, args.codec_size, device=args.device)
     clips = load_audio_clips(args.audio_glob, args.filecount, args.sample_rate, args.seconds)
     sr = None if args.sample_rate == 16_000 else args.sample_rate
-    wm = build_watermarkers([args.watermark], codec, sample_rate=sr)[args.watermark]
+    wm = build_watermarkers([args.watermark], codec, sample_rate=sr, device=args.device)[args.watermark]
     suite = build_suite(args.sample_rate, codec)
     suite.pop("identity", None)
     out = Path(args.out_dir)

@@ -62,7 +62,7 @@ def main(argv=None) -> None:
     float32_parity()
     needs_codec = args.method.startswith("semantic") or args.method == "token_green"
     codec = load_codec(args.codec_ckpt, args.codec_size, device=dev) if needs_codec else None
-    wm = build_watermarkers([args.method], codec)[args.method]
+    wm = build_watermarkers([args.method], codec, device=dev)[args.method]
 
     audio, sr = audio_io.read_wav(args.input)
     x = torch.as_tensor(audio.mean(axis=0), device=dev)

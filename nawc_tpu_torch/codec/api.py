@@ -18,7 +18,6 @@ import dataclasses
 from pathlib import Path
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..ops.rvq_fused import rvq_encode_fused
@@ -27,8 +26,8 @@ from ..utils.checkpoint import load_params
 from ..utils.config import CodecConfig
 from ..utils.device import resolve_device
 from ..utils.padding import pad_to_multiple
+from . import convert
 from .convert import flax_to_state_dict
-from .layers import SameConv1d, SameConvTranspose1d, Snake
 from .model import SnacCodec, VQLevel
 
 
@@ -89,32 +88,16 @@ def flax_init_tree(model: SnacCodec, seed: int) -> dict:
     """The flax variables tree (numpy, flax layout) that the JAX package's
     ``make_codec(jax.random.PRNGKey(seed), cfg)`` initialises for this
     model's config: LeCun truncated-normal kernels, fan-in normal codebooks,
-    zero biases and Snake ``log_alpha``, and the decoder's output conv zero.
-    Each parameter draws from its own flax key (:mod:`..utils.flaxinit`)."""
+    zero biases and Snake ``log_alpha``, and the decoder's output conv zero."""
     root = jaxrand.prng_key(seed)
-    params: dict = {}
-    for name, mod in model.named_modules():
-        path = tuple(name.split("."))
-        if isinstance(mod, (SameConv1d, SameConvTranspose1d, torch.nn.Linear)):
-            ws = mod.weight.shape  # flax keeps every kernel as (k, in, out) or (in, out)
-            shape = ((ws[2], ws[0], ws[1]) if isinstance(mod, SameConvTranspose1d)
-                     else (ws[2], ws[1], ws[0]) if isinstance(mod, SameConv1d) else (ws[1], ws[0]))
-            leaves = {"kernel": np.zeros(shape, np.float32) if path == ("decoder", "Conv_1")
-                      else flaxinit.lecun_normal(flaxinit.param_key(root, path), shape)}
-            if mod.bias is not None:
-                leaves["bias"] = np.zeros(tuple(mod.bias.shape), np.float32)
-        elif isinstance(mod, Snake):
-            leaves = {"log_alpha": np.zeros(tuple(mod.log_alpha.shape), np.float32)}
-        elif isinstance(mod, VQLevel):
-            leaves = {"codebook": flaxinit.fan_in_normal(flaxinit.param_key(root, path),
-                                                         tuple(mod.codebook.shape))}
-        else:
-            continue
-        node = params
-        for part in path:
-            node = node.setdefault(part, {})
-        node.update(leaves)
-    return {"params": params}
+
+    def codebook(path, mod):
+        if isinstance(mod, VQLevel):
+            return {"codebook": flaxinit.fan_in_normal(flaxinit.param_key(root, path),
+                                                       tuple(mod.codebook.shape))}
+        return None
+
+    return convert.flax_init_tree(model, root, zero_kernels={("decoder", "Conv_1")}, own=codebook)
 
 
 def make_codec(cfg: CodecConfig = CodecConfig(), device: str | torch.device = "cuda",

@@ -66,7 +66,8 @@ class Snake(nn.Module):
 
 
 class SameConv1d(nn.Conv1d):
-    """``nn.Conv1d`` with flax's "SAME" padding (any stride or dilation)."""
+    """``nn.Conv1d`` with flax's "SAME" padding (any stride, dilation or
+    group count)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
@@ -75,21 +76,29 @@ class SameConv1d(nn.Conv1d):
         total = max((out - 1) * s + d * (k - 1) + 1 - t, 0)
         if total:
             x = F.pad(x, (total // 2, total - total // 2))
-        return _conv(F.conv1d, x, self.weight, self.bias, s, 0, d)
+        return _conv(F.conv1d, x, self.weight, self.bias, s, 0, d, self.groups)
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):
     """flax ``ConvTranspose`` with "SAME" padding and kernel 2*stride: the
     output is stride times longer.  ``convert.py`` flips the flax kernel
-    along time for this module."""
+    along time for this module.
+
+    ``jax.lax``'s SAME transpose pads the stride-dilated input by
+    (ceil((k + s - 2) / 2), floor((k + s - 2) / 2)).  For an even stride the
+    two are equal, which ``padding = s / 2`` gives.  For an odd stride the
+    left one is larger by one: the module pads both sides by the left
+    amount (``padding = k - 1 - left``) and drops the extra last sample."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int):
-        if stride % 2:
-            raise NotImplementedError("the SAME transposed conv is ported for even strides")
-        super().__init__(in_ch, out_ch, 2 * stride, stride=stride, padding=stride // 2)
+        k = 2 * stride
+        left = -(-(k + stride - 2) // 2)
+        super().__init__(in_ch, out_ch, k, stride=stride, padding=k - 1 - left)
+        self.trim = stride % 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride, self.padding)
+        y = _conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride, self.padding)
+        return y[..., : y.shape[-1] - self.trim] if self.trim else y
 
 
 class ResidualUnit(nn.Module):

@@ -97,6 +97,12 @@ def istft(
     return sig
 
 
+def spectrogram(x: torch.Tensor, cfg: StftConfig = StftConfig(), power: float = 1.0) -> torch.Tensor:
+    """Magnitude (power=1) or power (power=2) spectrogram."""
+    s = stft(x, cfg).abs()
+    return s if power == 1.0 else s**power
+
+
 def num_frames(t: int, cfg: StftConfig, center: bool = True) -> int:
     """Frame count for a length-t signal (matches :func:`stft`)."""
     if center:

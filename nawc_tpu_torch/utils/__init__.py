@@ -1,9 +1,12 @@
-from .config import CodecConfig, SemanticWMConfig, SpreadSpectrumConfig, StftConfig
+from .config import (CodecConfig, MelConfig, NeuralWMConfig, SemanticWMConfig,
+                     SpreadSpectrumConfig, StftConfig)
 from .device import resolve_device
 from .padding import bucket_length, fix_length, pad_axis_to, pad_to_multiple
 
 __all__ = [
     "CodecConfig",
+    "MelConfig",
+    "NeuralWMConfig",
     "SemanticWMConfig",
     "SpreadSpectrumConfig",
     "StftConfig",

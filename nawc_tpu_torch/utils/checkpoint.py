@@ -1,11 +1,14 @@
-"""Reader for the flax msgpack checkpoints, with no ``msgpack`` or ``flax``.
+"""Reader and writer of the flax msgpack checkpoints, with no ``msgpack`` or
+``flax``.
 
 ``flax.serialization.to_bytes`` writes a msgpack map of maps whose leaves
 are ndarrays as ext type 1; the ext payload is itself msgpack of
 ``(shape, dtype_name, row-major bytes)`` (flax ``_ndarray_to_bytes``).  This
 module decodes that subset of msgpack: maps, arrays, str, bin, ext, ints,
 floats, nil and bool.  Arrays are ``np.frombuffer`` views of the file's
-bytes, never copied element by element.
+bytes, never copied element by element.  :func:`save_params` writes the
+same subset as msgpack-python packs it, so that
+``flax.serialization.from_bytes`` reads what the port saves.
 """
 
 from __future__ import annotations
@@ -124,6 +127,107 @@ def load_params(path: str | Path) -> dict:
 
     The arrays are read-only views of the file's bytes."""
     return unpackb(Path(path).read_bytes())
+
+
+class _Writer:
+    """msgpack encoding of maps with str keys, arrays, str, bytes, ints,
+    floats, nil, bool and numpy arrays (flax's ext type 1), each in the
+    smallest form, as msgpack-python's ``packb`` chooses it."""
+
+    def __init__(self):
+        self.parts: list[bytes] = []
+
+    def _head(self, n: int, fix: int | None, fix_max: int, tags: tuple[int, ...]) -> None:
+        if fix is not None and n <= fix_max:
+            self.parts.append(bytes([fix | n]))
+        elif len(tags) == 3 and n < 0x100:
+            self.parts.append(struct.pack(">BB", tags[0], n))
+        elif n < 0x10000:
+            self.parts.append(struct.pack(">BH", tags[-2], n))
+        else:
+            self.parts.append(struct.pack(">BI", tags[-1], n))
+
+    def write(self, x: Any) -> None:
+        if x is None:
+            self.parts.append(b"\xc0")
+        elif isinstance(x, bool):
+            self.parts.append(b"\xc3" if x else b"\xc2")
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.parts.append(struct.pack(">Bd", 0xCB, x))
+        elif isinstance(x, str):
+            b = x.encode("utf-8")
+            self._head(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.parts.append(b)
+        elif isinstance(x, (bytes, bytearray, memoryview)):
+            b = bytes(x)
+            self._head(len(b), None, 0, (0xC4, 0xC5, 0xC6))
+            self.parts.append(b)
+        elif isinstance(x, dict):
+            self._head(len(x), 0x80, 15, (0xDE, 0xDF))
+            for k, v in x.items():
+                self.write(k)
+                self.write(v)
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 15, (0xDC, 0xDD))
+            for v in x:
+                self.write(v)
+        elif isinstance(x, (np.ndarray, np.generic)):
+            arr = np.asarray(x)
+            payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+            self._ext(_EXT_NDARRAY if isinstance(x, np.ndarray) else _EXT_NPSCALAR, payload)
+        else:
+            raise TypeError(f"cannot write {type(x).__name__} to msgpack")
+
+    def _int(self, x: int) -> None:
+        if 0 <= x <= 0x7F or -32 <= x < 0:
+            self.parts.append(struct.pack(">b" if x < 0 else ">B", x))
+        elif x >= 0:
+            for tag, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                  (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+                if x <= top:
+                    self.parts.append(struct.pack(">B", tag) + struct.pack(fmt, x))
+                    return
+            raise OverflowError(x)
+        else:
+            for tag, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                                  (0xD2, ">i", -0x80000000), (0xD3, ">q", -(2**63))):
+                if x >= low:
+                    self.parts.append(struct.pack(">B", tag) + struct.pack(fmt, x))
+                    return
+            raise OverflowError(x)
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.parts.append(struct.pack(">Bb", fixed[n], code))
+        elif n < 0x100:
+            self.parts.append(struct.pack(">BBb", 0xC7, n, code))
+        elif n < 0x10000:
+            self.parts.append(struct.pack(">BHb", 0xC8, n, code))
+        else:
+            self.parts.append(struct.pack(">BIb", 0xC9, n, code))
+        self.parts.append(payload)
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object as msgpack (the subset flax writes)."""
+    w = _Writer()
+    w.write(obj)
+    return b"".join(w.parts)
+
+
+def save_params(path: str | Path, params: dict) -> None:
+    """Write a nested dict of numpy arrays (a flax variables tree) as
+    ``flax.serialization.to_bytes`` writes it; the file is replaced
+    atomically."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    tmp.write_bytes(packb(params))
+    tmp.replace(path)
 
 
 def tree_leaves(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:

@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the main path, field for field as in
+"""Configuration dataclasses, field for field as in
 ``nawc_tpu/utils/config.py`` with the same defaults.
 
 Only the configs of the families the port has are here.  The JAX
@@ -24,6 +24,17 @@ class StftConfig:
     @property
     def n_bins(self) -> int:
         return self.n_fft // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MelConfig:
+    """Mel filterbank parameters (Slaney-style, area-normalized)."""
+
+    sample_rate: int = 24_000
+    n_fft: int = 1024
+    n_mels: int = 80
+    fmin: float = 0.0
+    fmax: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +92,24 @@ class SpreadSpectrumConfig:
     mask_quantile: float = 0.0
     mask_lo_quantile: float = 0.0
     mask_softness: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralWMConfig:
+    """Trainable AudioSeal-style additive generator + frame-wise detector;
+    see ``nawc_tpu/utils/config.py`` for the reasoning behind each field.
+
+    ``window`` must equal the checkpoint's training crop: the message
+    pattern is anchored to the generator's stride lattice (320 samples), so
+    embed and detect both cut the stream into windows of this length."""
+
+    sample_rate: int = 16_000
+    n_bits: int = 16
+    dim: int = 32
+    strides: Tuple[int, ...] = (2, 4, 5, 8)
+    bottleneck_dim: int = 128
+    alpha: float = 1.0
+    window: int = 16_000
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,7 @@ The spread-spectrum PN patterns are drawn with
 package is readable by the other only if both draw the same bits, so this
 module reproduces jax's threefry2x32 hash, ``PRNGKey``, ``fold_in``,
 ``split``, ``random_bits``, ``uniform``, ``normal``, ``bernoulli``,
-``permutation`` and ``choice`` (without replacement) under
+``randint``, ``permutation`` and ``choice`` (without replacement) under
 ``jax_threefry_partitionable=True`` (the default of jax 0.9).  The keyed
 attacks draw their noise here too, so that they draw what JAX draws.
 Everything is uint32 and float32 arithmetic in numpy, on the host.
@@ -195,6 +195,21 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
 def bernoulli(key: np.ndarray, p: float, shape: tuple[int, ...]) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)`` with a float32 `p`."""
     return _unit_uniform(key, shape) < np.float32(p)
+
+
+def randint(key: np.ndarray, shape: tuple[int, ...], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, `minval`
+    and `maxval` within int32): two 32-bit draws per value, from the two
+    halves of ``split(key)``, folded into the span as jax folds them, with
+    uint32 wrap-around."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = _U32(1) if maxval <= minval else _U32((maxval - minval) & 0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        mult = _U32(2**16) % span
+        mult = (mult * mult) % span
+        off = ((hi % span) * mult + lo % span) % span
+    return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
 
 
 def permutation(key: np.ndarray, n: int) -> np.ndarray:

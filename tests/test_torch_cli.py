@@ -94,11 +94,17 @@ def test_cli_resume_reads_the_shards(run, capsys):
 
 
 def test_port_refuses_the_families_it_lacks():
-    """``neural`` is the one family still to port; the codec-latent ones
-    need a codec, as in the JAX CLI."""
+    """Every family of the JAX CLI builds (``neural`` from the trained
+    checkpoint, the codec-latent ones on a codec, which they require, as in
+    the JAX CLI); an unknown name is refused."""
+    from _torch_port import tiny_codecs
+    from nawc_tpu_torch.models import NeuralWM
+
     assert set(WM_CHOICES) >= {"spread_spectrum", "chunked", "psychoacoustic", "neural"}
-    with pytest.raises(SystemExit, match="A6"):
-        build_watermarkers(["neural"])
+    _, tc = tiny_codecs(seed=1)
+    built = build_watermarkers(list(WM_CHOICES), tc, device="cpu")
+    assert list(built) == list(WM_CHOICES)
+    assert isinstance(built["neural"], NeuralWM)
     for name in ("semantic_pca", "semantic_cluster", "semantic_random", "token_green"):
         with pytest.raises(SystemExit, match="requires"):
             build_watermarkers([name])

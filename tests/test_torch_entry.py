@@ -111,7 +111,7 @@ def test_service_matches_jax():
 
 _ISOLATED = r"""
 import importlib, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "nawc_tpu", "pandas", "matplotlib"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "nawc_tpu", "pandas", "matplotlib"}
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -127,12 +127,20 @@ import nawc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(nawc_tpu_torch.__path__, "nawc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the codec-latent families, PGD and the CLIs that load them lazily are walked too
+# the codec-latent families, PGD, the neural watermark, the trainers and
+# the CLIs that load them lazily are walked too
 assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
         "nawc_tpu_torch.models.resampled", "nawc_tpu_torch.attacks.pgd",
-        "nawc_tpu_torch.cli.benchmark", "nawc_tpu_torch.cli.watermark"} <= set(names)
+        "nawc_tpu_torch.cli.benchmark", "nawc_tpu_torch.cli.watermark",
+        "nawc_tpu_torch.models.neural", "nawc_tpu_torch.dsp.mel", "nawc_tpu_torch.utils.flags",
+        "nawc_tpu_torch.train.codec_train", "nawc_tpu_torch.train.wm_train",
+        "nawc_tpu_torch.train.adversarial", "nawc_tpu_torch.train.optim",
+        "nawc_tpu_torch.cli.train_wm", "nawc_tpu_torch.cli.train_codec",
+        "nawc_tpu_torch.cli.train_gan", "nawc_tpu_torch.cli.eval_codec",
+        "nawc_tpu_torch.cli.__main__"} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.codec_latent) and callable(chip_smoke.pgd_phase)
+assert callable(chip_smoke.neural_phase) and callable(chip_smoke.training_phase)
 from nawc_tpu_torch.codec import make_codec
 from nawc_tpu_torch.entry import entry
 from nawc_tpu_torch.utils.config import CodecConfig

@@ -7,6 +7,8 @@ lacks, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -263,3 +265,69 @@ def test_cuda_tensor_never_falls_back(dev):
     with _lib.plain_versions():
         sswm.whiten_correlate(r, p, _OFFS)
     assert sswm._KERNEL.launches == n + 1
+
+
+@pytest.mark.parametrize("form", ["default", "foreach", "fused", "for-loop", "revival"])
+def test_nearest_codebook_follows_a_trained_codebook(dev, form):
+    """The lookup after the codebook is moved in place by a training step
+    (``torch.optim.AdamW`` in its default, foreach, fused and for-loop
+    forms, through the port's optax-order wrapper, which moves the versions
+    that the fused form leaves) or by the dead-code revival's ``copy_``: the
+    codebook's version moves and the codes equal plain on the new table
+    (the kernel's normalised table is rebuilt)."""
+    from nawc_tpu_torch.codec.model import SnacCodec
+    from nawc_tpu_torch.train.codec_train import revive_dead_codes
+    from nawc_tpu_torch.train.optim import AdamW
+
+    cfg = CodecConfig(encoder_dim=8, latent_dim=64, decoder_dim=64, codebook_size=128, codebook_dim=8)
+    rng = np.random.default_rng(5)
+    quant = SnacCodec(cfg).quantizer.to(dev)
+    for lvl in quant.levels:
+        lvl.codebook.data = _g(rng, tuple(lvl.codebook.shape), dev)
+    z = _g(rng, (4, 32, 64), dev)
+    codes0 = [c.clone() for c in quant(z)[1]]  # warms the cached tables
+    versions = [lvl.codebook._version for lvl in quant.levels]
+    if form == "revival":
+        usage = {i: np.where(np.arange(128) % 3 == 0, 0, 5).astype(np.int64) for i in range(3)}
+        assert revive_dead_codes(SimpleNamespace(quantizer=quant), usage, cfg, np.random.default_rng(7))[0] > 0
+    else:
+        kw = {"default": {}, "foreach": {"foreach": True}, "fused": {"fused": True},
+              "for-loop": {"foreach": False}}[form]
+        opt = AdamW(quant.parameters(), 0.05, weight_decay=1e-4, **kw)
+        for _ in range(3):
+            opt.zero_grad()
+            _, _, commit, cb_loss = quant(z)
+            (commit + cb_loss).backward()
+            opt.step()
+    assert all(lvl.codebook._version > v for lvl, v in zip(quant.levels, versions)), form
+    before = rvq._KERNEL.launches
+    _, got, _, _ = quant(z)
+    torch.cuda.synchronize()
+    assert rvq._KERNEL.launches == before + 3
+    with _lib.plain_versions():
+        _, want, _, _ = quant(z)
+    assert any(not torch.equal(a, b) for a, b in zip(codes0, want)), "the codebook did not move the codes"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_codec_training_step_codes_equal_plain(dev):
+    """A codec training step at full width (4 x 32768 samples): the codes of
+    its three lookups, on the kernel, equal the plain codes of the same
+    step from a copy of the same state, before and after an update."""
+    import copy
+
+    from nawc_tpu_torch.train.codec_train import init_codec_train, make_codec_train_step
+
+    cfg = CodecConfig()
+    state = init_codec_train(0, cfg, device=dev)
+    step = make_codec_train_step(cfg)
+    wav = _g(np.random.default_rng(6), (4, 32_768), dev, 0.1)
+    for _ in range(2):
+        ref = copy.deepcopy(state)
+        with _lib.plain_versions():
+            want = step(ref, wav)
+        got = step(state, wav)
+        for i in range(cfg.num_levels):
+            assert torch.equal(got[f"usage_{i}"], want[f"usage_{i}"]), i
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))

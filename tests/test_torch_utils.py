@@ -23,7 +23,7 @@ CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / "codec_24k.msgpa
 
 
 @pytest.mark.parametrize("name", ["StftConfig", "CodecConfig", "SpreadSpectrumConfig",
-                                  "SemanticWMConfig"])
+                                  "SemanticWMConfig", "MelConfig", "NeuralWMConfig"])
 def test_config_fields_and_defaults(name):
     jc, tc = getattr(jcfg, name)(), getattr(tcfg, name)()
     jf = [(f.name, f.default) for f in dataclasses.fields(jc)]
