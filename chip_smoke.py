@@ -71,7 +71,8 @@ Phases, each printing its seconds:
    marked and clean audio, a 200-sample delay) with ms per batch, then
    ``run_robustness`` at ``cli/robustness.py``'s defaults without and with
    sync, kernels against plain (every lookup of ``dac`` held against plain
-   on its own inputs, the rows equal, no ERROR row);
+   on its own inputs, the rows equal, no ERROR row), the sync run on 7 of
+   the 19 attacks (``SYNC_ATTACKS``);
 13. training: ``train_wm`` (16 x 1 s, 24 steps, the trained codec as
    ``--codec_ckpt`` on every 3rd step), ``train_codec`` (16 x 32768 at
    24 kHz, 5 steps, a dead-code revival, 2 steps) and ``train_gan`` (16 x
@@ -84,7 +85,22 @@ Phases, each printing its seconds:
    bit for bit unchanged, and a checkpoint written by ``save_params`` read
    back equal; then ``train_wm``, ``train_codec`` and ``train_gan`` as a
    user runs them, 2 steps each at their defaults, and ``eval_codec`` on
-   the fine-tuned codec.
+   the fine-tuned codec;
+14. interpretability: the probe CLI for spread_spectrum and semantic_pca as
+   ``benchmark --probe`` spawns it, then the perturbation (16 x 2 s),
+   uncertainty (16 x 2 s, 20 MC samples), ablation (8 x 2 s,
+   spread_spectrum and chunked), manifold (8 x 2 s at 24 kHz,
+   spread_spectrum and semantic_pca at 100 of its 300 Adam steps) and PGD
+   CLIs (8 x 2 s, each of the six modes: 100 steps, eps 0.02, 128 PCA
+   components, head 60) at their defaults on speech-like WAV files, the
+   input gradient and 16-step integrated gradients of the spread-spectrum
+   score on the main path's batch (each against the plain route's by the
+   PGD rule), the saliency spectrogram and its top frames, and the stats
+   CLI on phase 8's results.  Every kernel call is held against its plain
+   version on its own inputs; all three kernels must launch.  It prints
+   the seconds of each CLI and saliency call, the uncertainty's host
+   draws, the peak memory of the saliency calls and of ``exp_c``, and the
+   device split of one IG step.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -452,8 +468,9 @@ class Recorder(contextlib.AbstractContextManager):
     """Replaces `name` in `module` by a wrapper that keeps the arguments and
     the result of each call, so that each call of a kernel run can be held
     against the plain version on the same inputs afterwards.  With `clone`
-    it keeps copies of the tensor arguments: a codebook in training moves
-    in place after the lookup that read it."""
+    it keeps detached copies of the tensor arguments and the output
+    detached: a codebook in training moves in place after the lookup that
+    read it, and a call inside a backward must not keep the graph alive."""
 
     def __init__(self, module, name: str, clone: bool = False):
         self.module, self.name, self.orig = module, name, getattr(module, name)
@@ -465,7 +482,7 @@ class Recorder(contextlib.AbstractContextManager):
             out = self.orig(*args)
             if self.clone:
                 args = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
-            self.calls.append((args, out))
+            self.calls.append((args, out.detach() if self.clone and torch.is_tensor(out) else out))
             return out
 
         setattr(self.module, self.name, record)
@@ -830,6 +847,10 @@ def pgd_phase(dev, n_clips: int = 8, seconds: float = 2.0, steps: int = 100) -> 
 # ------------------------------------------------------------------ phase 12
 
 NEURAL_CKPT = REPO / "checkpoints" / "neural_wm.msgpack"
+# the neural sync sweep's attacks (7 of the 19, to fit the script's budget):
+# the shifts that sync detection exists for, a noise, a lossy codec and the
+# two codec round-trips (the lookups)
+SYNC_ATTACKS = ("time_jitter", "time_stretch", "phase_shift", "gaussian_noise", "mp3", "encodec", "dac")
 
 
 def neural_phase(codec, dev, n_clips: int = 16, seconds: float = 4.0, wm=None) -> dict:
@@ -868,11 +889,13 @@ def neural_phase(codec, dev, n_clips: int = 16, seconds: float = 4.0, wm=None) -
     suite.pop("identity")
     out = {"ms": ms, "acc": acc}
     # the sync run without its warm-up run (the plans are warm from the
-    # first): it takes a minute a run
+    # first), and on the attacks of SYNC_ATTACKS only: detect_sync costs
+    # 3.5 s an attack
+    suites = {False: suite, True: {k: suite[k] for k in SYNC_ATTACKS}}
     for label, sync in (("neural", False), ("neural sync", True)):
-        out[label] = sweep_run(label, lambda: run_robustness(wm, suite, clips, 16_000, 2.0, sync=sync,
-                                                             device=dev), 0.0, ("nearest_codebook",),
-                               warm=not sync)
+        out[label] = sweep_run(label, lambda: run_robustness(wm, suites[sync], clips, 16_000, 2.0,
+                                                             sync=sync, device=dev),
+                               0.0, ("nearest_codebook",), warm=not sync)
         print(f"  {label}: bitwise/clean {mean_of(out[label]['rows'], 'bitwise/clean'):.4f}, "
               f"bitwise/distorted {mean_of(out[label]['rows'], 'bitwise/distorted'):.4f}")
     out["launches"] = {n: out["neural"]["launches"][n] + out["neural sync"]["launches"][n]
@@ -1083,6 +1106,186 @@ def training_phase(dev, codec, tree: dict, sizes: dict | None = None,
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+
+MANIFOLD_ADAM_STEPS = 100  # of the semantic embed's 300, to fit the script's budget
+
+
+def gradient_off(g_k: torch.Tensor, g_p: torch.Tensor, label: str) -> tuple[float, float]:
+    """A detector gradient through the kernel against the plain route's, by
+    the PGD rule (ROADMAP.md C): within 1e-4 of the largest |gradient| in
+    all but 1% of the samples, within 1e-3 everywhere.  -> (max error
+    relative to that scale, share of samples off by more than 1e-4)."""
+    scale = float(g_p.abs().max())
+    err = (g_k - g_p).abs()
+    share = float((err > 1e-4 * scale).float().mean())
+    check(scale > 0 and float(err.max()) <= 1e-3 * scale and share <= 0.01,
+          f"{label}: gradient off plain by {float(err.max())} (scale {scale}), {share} of samples "
+          "beyond 1e-4")
+    return float(err.max()) / scale, share
+
+
+def check_rvq_calls(calls) -> dict:
+    """Every recorded rvq_encode_fused call against the plain encode."""
+    shapes: dict = {}
+    mism = frames = 0
+    for (z, quantizer, strides), codes in calls:
+        m, f, _ = parity.compare_rvq(codes, z, quantizer, strides)
+        mism, frames = mism + m, frames + f
+        shapes[tuple(z.shape)] = shapes.get(tuple(z.shape), 0) + 1
+    parity.check_share(mism, frames, "interp rvq_encode_fused")
+    return dict(shapes=shapes, near_codes=mism, frames=frames)
+
+
+def saliency_runs(wm, marked: torch.Tensor, msg: torch.Tensor, steps: int = 16) -> dict:
+    """input_gradient and integrated_gradients of the spread-spectrum score
+    on the main path's batch, each against the plain route's, then the
+    saliency spectrogram and the top frames: seconds and peak memory per
+    call, and the device split of one IG step."""
+    from nawc_tpu_torch import interp
+
+    def score(w):
+        return wm.score(w, msg)
+
+    out = {}
+    runs = {"input_gradient": lambda: interp.input_gradient(score, marked),
+            "integrated_gradients": lambda: interp.integrated_gradients(score, marked, steps=steps)}
+    for name, fn in runs.items():
+        fn()  # cuFFT's and the allocator's warm-up
+        torch.cuda.reset_peak_memory_stats()
+        g, ms = synced_ms(fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with _lib.plain_versions():
+            g_p = fn()
+        rel, share = gradient_off(g, g_p, name)
+        check(bool(torch.isfinite(g).all()) and g.shape == marked.shape, f"{name}: {tuple(g.shape)}")
+        print(f"saliency {name} {tuple(marked.shape)}: {ms / 1e3:.3f} s, peak memory {peak:.2f} GiB; "
+              f"against the plain route max error {rel:.3g} of the largest |gradient|, "
+              f"{share:.2%} of samples beyond 1e-4")
+        out[name] = dict(s=ms / 1e3, peak_gib=peak, sal=g)
+    spec, ms_spec = synced_ms(lambda: interp.saliency_spectrogram(marked, out["integrated_gradients"]["sal"]))
+    top, ms_top = synced_ms(lambda: interp.topk_salient_frames(spec, 10))
+    check(bool(torch.isfinite(spec).all()) and tuple(top.shape) == (marked.shape[0], 10),
+          f"saliency spectrogram {tuple(spec.shape)}, top frames {tuple(top.shape)}")
+    print(f"saliency_spectrogram {tuple(spec.shape)} {ms_spec / 1e3:.3f} s; topk_salient_frames "
+          f"{ms_top / 1e3:.3f} s; clip 0's top frames {top[0].tolist()}")
+    kinds = by_kind(device_events(lambda: interp.input_gradient(score, 0.5 * marked)))
+    print("one IG step (a batched gradient at alpha 0.5), device ms by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    out["spectrogram s"], out["topk s"], out["ig step"] = ms_spec / 1e3, ms_top / 1e3, kinds
+    return out
+
+
+def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows: list[dict],
+                 n_clips: int = 16, seconds: float = 2.0, semantic_steps: int = MANIFOLD_ADAM_STEPS,
+                 cli_args: tuple[str, ...] = ()) -> dict:
+    """Phase 14: the probe as ``benchmark --probe`` spawns it, then the
+    interpretability CLIs at their defaults on speech-like WAVs written to
+    a temporary directory, each PGD mode, the saliency of the main path's
+    batch and the stats CLI on phase 8's results; every kernel call held
+    against its plain version.  `cli_args` adds arguments to every CLI (for
+    a rehearsal on the CPU only)."""
+    from nawc_tpu_torch.cli import ablation, manifold, perturbation, pgd, stats, uncertainty
+    from nawc_tpu_torch.cli.common import preflight_probe
+    from nawc_tpu_torch.eval import read_csv, write_results_csv
+    from nawc_tpu_torch.models import semantic
+    from nawc_tpu_torch.utils import jaxrand as jaxrand_module
+
+    out: dict = {"s": {}}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "wav").mkdir()
+        for i, clip in enumerate(speech_clips(n_clips, seconds, 16_000, seed=17)):
+            write_wav(d / "wav" / f"speech{i}.wav", clip, 16_000)
+        glob = str(d / "wav" / "*.wav")
+        extra = ["--audio_glob", glob, "--codec_ckpt", str(CHECKPOINT), *cli_args]
+        for name in ("spread_spectrum", "semantic_pca"):
+            _, ms = synced_ms(lambda: preflight_probe(
+                [name], str(CHECKPOINT), "full", 16_000, audio_glob=glob, device=dev.type))
+            out["s"][f"probe {name}"] = ms / 1e3
+        write_results_csv(results_rows, d / "test_results.csv")
+        runs = [("perturbation", perturbation, []), ("uncertainty", uncertainty, []),
+                ("ablation", ablation, ["--watermarks", "spread_spectrum", "chunked"]),
+                ("manifold", manifold, ["--watermarks", "spread_spectrum", "semantic_pca"])]
+        runs += [(f"pgd {m}", pgd, ["--mode", m]) for m in pgd.MODES]
+        draw_s = [0.0]
+        normal = jaxrand_module.normal
+
+        def timed_normal(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return normal(*a, **k)
+            finally:
+                draw_s[0] += time.perf_counter() - t0
+
+        _lib.reset_launches()
+        with Recorder(ss_module, "whiten_correlate", clone=True) as sw, \
+                Recorder(codec_model, "nearest_codebook") as lk, \
+                Recorder(codec_api, "rvq_encode_fused") as rf:
+            for label, mod, argv in runs:
+                argv = argv + extra + ["--out_dir", str(d / label.replace(" ", "_"))]
+                with contextlib.ExitStack() as stack:
+                    if label == "manifold":
+                        cfgs = dict(semantic._DEFAULT_CFGS)
+                        semantic._DEFAULT_CFGS["pca"] = dataclasses.replace(cfgs["pca"], steps=semantic_steps)
+                        stack.callback(semantic._DEFAULT_CFGS.update, cfgs)
+                    if label == "uncertainty":
+                        jaxrand_module.normal = timed_normal
+                        stack.callback(setattr, jaxrand_module, "normal", normal)
+                    torch.cuda.reset_peak_memory_stats()
+                    _, ms = synced_ms(lambda: mod.main(argv))
+                    out["s"][label] = ms / 1e3
+                    if label == "pgd exp_c":
+                        out["exp_c peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+            out["saliency"] = saliency_runs(wm, marked, msg)
+            torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+        _, ms = synced_ms(lambda: stats.main(["--results", str(d / "test_results.csv"),
+                                              "--out_dir", str(d / "stats")]))
+        out["s"]["stats"] = ms / 1e3
+        out["uncertainty draw s"] = draw_s[0]
+
+        tables = {name: read_csv(d / sub / name) for sub, name in [
+            ("perturbation", "perturbation_analysis.csv"), ("uncertainty", "uncertainty_results.csv"),
+            ("ablation", "layer_ablation.csv"), ("manifold", "manifold_analysis.csv"),
+            ("pgd_attack", "pgd_attack.csv"), ("pgd_baselines", "attack_baselines.csv"),
+            ("pgd_exp_a", "exp_a_metrics.csv"), ("pgd_exp_b", "exp_b_reconstruction.csv"),
+            ("pgd_exp_c", "exp_c_comparison.csv"), ("pgd_interp", "pgd_interpretability.csv"),
+            ("stats", "feature_importance.csv"), ("stats", "stats_by_group.csv")]}
+    for name, rows in tables.items():
+        vals = [v for r in rows for v in r.values() if isinstance(v, float)]
+        check(len(rows) > 0 and all(np.isfinite(vals)), f"{name}: empty or not finite")
+    unc = tables["uncertainty_results.csv"]
+    acc = mean_of(unc, "correct")
+    man = tables["manifold_analysis.csv"]
+    att = tables["pgd_attack.csv"]
+    n8 = len({r["clip"] for r in man})  # the clips of the 8-clip CLIs
+    check(len(tables["layer_ablation.csv"]) == 6 * 2 * n8 and len(man) == 2 * n8
+          and len(unc) == 2 * len(tables["perturbation_analysis.csv"]), "interp: row counts")
+    check(acc >= 0.85, f"uncertainty: MC accuracy {acc} under the JAX test's 0.85")
+    check(mean_of(att, "score_after") < mean_of(att, "score_before"), "pgd attack did not lower the score")
+    ss_rows = [r for r in man if r["watermark"] == "spread_spectrum"]
+    check(mean_of(ss_rows, "score_wm") > mean_of(ss_rows, "score_clean"), "manifold: marked below clean")
+
+    s, c, r = check_sswm_calls(sw.calls, wm.presence_z0), check_lookup_calls(lk.calls), check_rvq_calls(rf.calls)
+    print(f"interp CLIs and saliency: launches {launches}")
+    print(f"  whiten_correlate calls by (B, T, W, K): {s['shapes']}, max|z - plain| {s['max_err']:.3g}, "
+          f"near-tie bits flipped {s['near_bits']}")
+    print(f"  nearest_codebook calls {c['shapes']}: {c['near_codes']} of {c['frames']} codes differ "
+          f"(near-ties); rvq_encode_fused calls {r['shapes']}: {r['near_codes']} of {r['frames']} differ")
+    for n in _lib.KERNELS:
+        check(launches[n] > 0, f"interp: kernel {n} was not launched")
+    print("interp seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in out["s"].items())
+          + f"; uncertainty's host draws {out['uncertainty draw s']:.2f} s; peak memory of exp_c "
+          f"{out['exp_c peak GiB']:.2f} GiB")
+    print(f"uncertainty accuracy {acc:.4f}; pgd score {mean_of(att, 'score_before'):.4f} -> "
+          f"{mean_of(att, 'score_after'):.4f}; manifold delta_att (spread_spectrum) "
+          f"{mean_of(ss_rows, 'delta_att'):.4f}; baselines " + ", ".join(
+              f"{b['attack']} {b['score']:.3f}" for b in tables["attack_baselines.csv"]))
+    out["launches"] = launches
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1270,6 +1473,9 @@ def main() -> int:
     with phase("13 training"):
         train = training_phase(dev, codec, load_params(CHECKPOINT))
 
+    with phase("14 interpretability"):
+        interp = interp_phase(dev, wm, marked, msg, swept["spread_spectrum"]["rows"])
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
@@ -1288,6 +1494,7 @@ def main() -> int:
             "pgd_launches": pgd["launches"][n],
             "neural_launches": neural["launches"][n],
             "train_launches": train["launches"][n],
+            "interp_launches": interp["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

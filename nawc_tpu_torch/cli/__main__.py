@@ -8,14 +8,11 @@ from __future__ import annotations
 import importlib
 import sys
 
-COMMANDS = ("benchmark", "robustness", "watermark", "train_codec", "train_wm", "train_gan",
-            "eval_codec")
+COMMANDS = ("benchmark", "robustness", "manifold", "ablation", "uncertainty", "perturbation",
+            "pgd", "stats", "watermark", "train_codec", "train_wm", "train_gan", "eval_codec",
+            "probe")
 # the JAX dispatcher's commands still to port -> their ROADMAP.md item
-QUEUED = {
-    "manifold": "A9 and A12", "ablation": "A9 and A12", "uncertainty": "A9 and A12",
-    "perturbation": "A9 and A12", "pgd": "A9 and A12", "quality": "A8 and A12",
-    "stats": "A8 and A12", "sample_data": "A12",
-}
+QUEUED = {"quality": "A8 and A12", "sample_data": "A12"}
 
 
 def main() -> None:

@@ -13,9 +13,11 @@ It writes ``detector_checker_results.csv`` (--mode detector),
 columns.  Each method runs at its native rate: the clips, loaded at
 ``--sample_rate``, are resampled to it (the codec-latent methods run at the
 codec's 24 kHz), and so is the attack suite.  It exits with code 2 when
-every row of a method is an ERROR row.  Left out against the JAX CLI: the
-survival bar chart and the artifacts' comparison PNG (the port does not use
-matplotlib), and ``--probe`` (its subprocess runs ``cli.probe``, not ported).
+every row of a method is an ERROR row.  With ``--probe`` each watermark
+first runs ``cli.probe`` in a disposable subprocess, on the run's clips
+(the first dataset's with ``--datasets``).  Left out against the JAX CLI:
+the survival bar chart and the artifacts' comparison PNG (the port does not
+use matplotlib).
 """
 
 from __future__ import annotations
@@ -80,8 +82,19 @@ def main(argv=None) -> None:
     ap.add_argument("--out_dir", default="results")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--artifacts", type=int, default=0, help="save N artifact triplets")
+    ap.add_argument("--probe", action="store_true",
+                    help="preflight each watermark at n=2 x 1 s in a disposable "
+                         "subprocess before the full-scale stage")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+
+    if args.probe:
+        from .common import preflight_probe
+
+        glob = (str(Path(args.data_root) / args.datasets[0] / "*.wav")
+                if args.data_root and args.datasets else args.audio_glob)
+        preflight_probe(args.watermarks, args.codec_ckpt, args.codec_size, args.sample_rate,
+                        audio_glob=glob, device=args.device)
 
     from ..attacks import build_suite
     from ..dsp.resample import resample

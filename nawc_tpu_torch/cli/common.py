@@ -1,5 +1,5 @@
 """Shared CLI plumbing (``nawc_tpu/cli/common.py``): audio loading, the
-codec and watermarker construction, for the entry points the port has."""
+codec and watermarker construction, and the probe preflight."""
 
 from __future__ import annotations
 
@@ -81,6 +81,50 @@ def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device 
         print(f"[codec] WARNING: no checkpoint at {ckpt!r}; using RANDOM weights "
               "(codec round-trips will destroy audio)")
     return codec
+
+
+def preflight_probe(
+    watermarks: list[str],
+    codec_ckpt: str | None = None,
+    codec_size: str = "full",
+    sample_rate: int = 16_000,
+    timeout_s: float = 900.0,
+    audio_glob: str = DEFAULT_AUDIO_GLOB,
+    device: str = "cuda",
+) -> None:
+    """Run ``python -m nawc_tpu_torch.cli.probe`` for each watermark in a
+    disposable subprocess before a full-scale stage, and print its last
+    line.  A probe that times out or exits non-zero ends the run
+    (SystemExit) before the full-scale stage starts.  The probe reads the
+    clips of `audio_glob` on `device`, and imports this copy of the
+    package, wherever the working directory is."""
+    import os
+    import subprocess
+    import sys
+
+    root = str(Path(__file__).resolve().parents[2])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+
+    for name in watermarks:
+        cmd = [
+            sys.executable, "-m", "nawc_tpu_torch.cli.probe", "--watermark", name,
+            "--sample_rate", str(sample_rate), "--codec_size", codec_size,
+            "--audio_glob", audio_glob, "--device", device,
+        ]
+        if codec_ckpt:
+            cmd += ["--codec_ckpt", codec_ckpt]
+        print(f"[probe] preflight {name} (subprocess, timeout {timeout_s:.0f}s)", flush=True)
+        try:
+            proc = subprocess.run(cmd, timeout=timeout_s, capture_output=True, text=True, env=env)
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"[probe] {name} preflight TIMED OUT after {timeout_s:.0f}s; "
+                             "refusing to run the full-scale stage") from None
+        if proc.returncode != 0:
+            tail = (proc.stderr or proc.stdout or "").strip().splitlines()[-8:]
+            raise SystemExit(f"[probe] {name} preflight FAILED (rc={proc.returncode}); "
+                             "refusing to run the full-scale stage.\n" + "\n".join(tail))
+        lines = proc.stdout.strip().splitlines()
+        print(f"[probe] {lines[-1] if lines else f'{name} preflight ok (no output)'}", flush=True)
 
 
 def build_watermarkers(names: list[str], codec=None, sample_rate: int | None = None,

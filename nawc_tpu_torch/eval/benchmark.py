@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..interp.feature_importance import Row
-from ..models.base import random_message
+from ..models.base import embed_payload, score_payload
 from ..utils import jaxrand
 from ..utils.device import resolve_device
 from .metrics import si_snr
@@ -54,16 +54,8 @@ def _release_device_memory() -> None:
     gc.collect()
 
 
-def _embed(wm, wav: torch.Tensor, key: np.ndarray):
-    if getattr(wm, "n_bits", 0) > 0:
-        msg = random_message(key, wav.shape[0], wm.n_bits, device=wav.device)
-        return wm.embed(wav, msg, key), msg
-    return wm.embed(wav), None
-
-
 def _score(wm, wav: torch.Tensor, msg) -> np.ndarray:
-    s = wm.score(wav, msg) if msg is not None else wm.score(wav)
-    return s.detach().cpu().numpy()
+    return score_payload(wm, wav, msg).detach().cpu().numpy()
 
 
 def _batch(wav, device) -> torch.Tensor:
@@ -86,7 +78,7 @@ def run_detector_checker(
     for name, wm in watermarkers.items():
         th = _threshold_for(name, thresholds)
         try:
-            marked, msg = _embed(wm, wav, key)
+            marked, msg = embed_payload(wm, wav, key)
             before = _score(wm, wav, msg)
             after = _score(wm, marked, msg)
             for i in range(wav.shape[0]):
@@ -121,7 +113,7 @@ def run_survivability(
     for wname, wm in watermarkers.items():
         th = _threshold_for(wname, thresholds)
         try:
-            marked, msg = _embed(wm, wav, key)
+            marked, msg = embed_payload(wm, wav, key)
             wm_snr = si_snr(wav, marked).cpu().numpy()
         except Exception as e:
             rows.append({"watermark": wname, "attack": "-", "clip_index": -1, "error": repr(e)})

@@ -127,9 +127,10 @@ def run_robustness(
 
 
 def _cell(v) -> str:
-    """A value as pandas' ``to_csv`` writes it: floats by repr, NaN empty."""
-    if isinstance(v, float):
-        return "" if math.isnan(v) else repr(v)
+    """A value as pandas' ``to_csv`` writes it: floats by their shortest
+    repr in their own precision (float32 as float32), NaN empty."""
+    if isinstance(v, (float, np.floating)):
+        return "" if math.isnan(v) else str(v)
     return str(v)
 
 

@@ -1,7 +1,6 @@
-"""Stats aggregation (``nawc_tpu/interp/feature_importance.py``: ``agg_stats``
-only, which the robustness tables need), on numpy over lists of row dicts
-instead of pandas DataFrames.  The feature-importance analysis waits for
-ROADMAP A9.
+"""Feature-importance correlation analysis and stats aggregation
+(``nawc_tpu/interp/feature_importance.py``), on numpy over lists of row
+dicts instead of pandas DataFrames.
 
 A table is a list of dicts, one per row; its columns are the keys in the
 order they first appear, and a key a row lacks reads as NaN there.
@@ -29,6 +28,46 @@ def numeric_columns(rows: list[Row]) -> list[str]:
     """Columns whose every value is a number (as pandas' ``select_dtypes``
     of ``np.number`` picks them: booleans and strings are not)."""
     return [c for c in columns(rows) if all(_is_number(r[c]) for r in rows if c in r)]
+
+
+def _rankdata(x: np.ndarray) -> np.ndarray:
+    """1-based ranks, ties given their average rank."""
+    order = np.argsort(x)
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(x) + 1)
+    _, inv, counts = np.unique(x, return_inverse=True, return_counts=True)
+    sums = np.zeros(len(counts))
+    np.add.at(sums, inv, ranks)
+    return sums[inv] / counts[inv]
+
+
+def compute_feature_importance(rows: list[Row], target: str) -> list[Row]:
+    """Pearson and Spearman correlation of every numeric column with
+    `target`, over the rows where both are finite (columns with fewer than
+    3 such rows or no spread are left out) -> rows (feature, pearson,
+    spearman, abs_pearson), by abs_pearson descending, ties in column
+    order."""
+    num = numeric_columns(rows)
+    if target not in num:
+        raise KeyError(f"target column {target!r} not numeric or missing")
+
+    def values(c: str) -> np.ndarray:
+        return np.array([r.get(c, math.nan) for r in rows], np.float64)
+
+    y = values(target)
+    out = []
+    for col in num:
+        if col == target:
+            continue
+        x = values(col)
+        m = np.isfinite(x) & np.isfinite(y)
+        if m.sum() < 3 or x[m].std() == 0 or y[m].std() == 0:
+            continue
+        pearson = float(np.corrcoef(x[m], y[m])[0, 1])
+        spearman = float(np.corrcoef(_rankdata(x[m]), _rankdata(y[m]))[0, 1])
+        out.append({"feature": col, "pearson": pearson, "spearman": spearman,
+                    "abs_pearson": abs(pearson)})
+    return sorted(out, key=lambda r: -r["abs_pearson"])
 
 
 def agg_stats(rows: list[Row], group_cols: list[str]) -> list[Row]:

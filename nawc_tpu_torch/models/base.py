@@ -49,6 +49,21 @@ def random_message(key: np.ndarray, batch: int, n_bits: int,
     return torch.from_numpy(bits).to(dev)
 
 
+def embed_payload(wm, wav: torch.Tensor, key: np.ndarray) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """-> (marked, msg): a payload-carrying `wm` embeds
+    ``random_message(key, B, n_bits)`` with `key`; the others embed no
+    payload (msg None)."""
+    if getattr(wm, "n_bits", 0) > 0:
+        msg = random_message(key, wav.shape[0], wm.n_bits, device=wav.device)
+        return wm.embed(wav, msg, key), msg
+    return wm.embed(wav), None
+
+
+def score_payload(wm, wav: torch.Tensor, msg: torch.Tensor | None) -> torch.Tensor:
+    """`wm`'s score of `wav`, against `msg` where it carries one."""
+    return wm.score(wav, msg) if msg is not None else wm.score(wav)
+
+
 def bit_accuracy(bits: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
     """(B, n_bits) x (B, n_bits) -> (B,) fraction of matching bits."""
     return (bits == msg).float().mean(dim=-1)

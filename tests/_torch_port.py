@@ -1,12 +1,17 @@
 """Shared pieces of the tests that hold ``nawc_tpu_torch`` against
 ``nawc_tpu`` on the CPU: the tiny codec of ``tests/test_rvq_fused.py``, with
-the same flax weights in both packages, and the near-tie rule for codes."""
+the same flax weights in both packages, the near-tie rule for codes,
+speech-like clips and the excused-sample rule for detector gradients."""
 
 from __future__ import annotations
+
+import contextlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nawc_tpu.codec import SnacCodec
@@ -70,3 +75,91 @@ def assert_codes_match(got, want, z_e=None, codebook=None) -> int:
         assert torch.equal(got, want), f"{int((got != want).sum())} codes differ"
         return 0
     return near_tie_mismatches(got, want, score_margin(t(z_e), t(codebook)))
+
+
+def speech(sr: int, n: int, seconds: float, seed: int) -> np.ndarray:
+    """(n, seconds * sr) speech-like clips: five harmonics of an f0 under a
+    syllable-rate envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(int(sr * seconds)) / sr
+    f0 = rng.uniform(110, 220, (n, 1))
+    env = np.clip(np.sin(2 * np.pi * rng.uniform(3, 5, (n, 1)) * tt), 0, None) ** 2
+    tone = sum(np.sin(2 * np.pi * h * f0 * tt) / h for h in range(1, 6)) * env
+    return (0.2 * tone + 0.01 * rng.normal(size=(n, tt.size))).astype(np.float32)
+
+
+def assert_gradient_close(got: np.ndarray, want: np.ndarray) -> None:
+    """A detector gradient against JAX's: within 1e-4 of the largest
+    |gradient| in all but 1% of the samples and within 1e-3 of it
+    everywhere (the spread-spectrum score's gradient is ill-conditioned at
+    quiet samples; ROADMAP.md C)."""
+    scale = np.abs(want).max()
+    assert scale > 0
+    err = np.abs(got - want)
+    assert err.max() <= 1e-3 * scale, (err.max(), scale)
+    assert (err > 1e-4 * scale).mean() <= 0.01, (err > 1e-4 * scale).mean()
+
+
+def write_cli_data(root: Path) -> Path:
+    """Two wavs of 1.4 s and 1.1 s at 16 kHz and ``tiny.msgpack``, the tiny
+    codec's weights as a flax checkpoint (read with ``--codec_size small``,
+    whose config is the tiny one) under `root`."""
+    from nawc_tpu.utils.checkpoint import save_params
+    from nawc_tpu_torch.utils import audio_io
+
+    rng = np.random.default_rng(0)
+    for i, seconds in enumerate((1.4, 1.1)):
+        tt = np.arange(int(16_000 * seconds)) / 16_000
+        x = 0.3 * np.sin(2 * np.pi * (150 + 40 * i) * tt) * (0.6 + 0.4 * np.sin(2 * np.pi * 4 * tt))
+        audio_io.write_wav(root / f"clip{i}.wav", x + 0.02 * rng.normal(size=tt.size), 16_000)
+    save_params(root / "tiny.msgpack", tiny_codecs()[0].params)
+    return root
+
+
+@contextlib.contextmanager
+def jax_tiny_codec():
+    """JAX's CLIs get the tiny codec's CodecState from ``load_codec``: what
+    ``load_codec(<tiny.msgpack>, "small")`` returns, without tracing flax's
+    init of the codec (about 20 s on the CPU) only to replace every leaf."""
+    from nawc_tpu.cli import common
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(common, "load_codec", lambda ckpt, size="full": tiny_codecs()[0])
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
+def cli_common(root: Path) -> list[str]:
+    """The arguments every interpretability CLI takes, for the data of
+    :func:`write_cli_data`."""
+    return ["--audio_glob", str(root / "*.wav"), "--filecount", "2", "--seconds", "1.0",
+            "--codec_size", "small", "--codec_ckpt", str(root / "tiny.msgpack")]
+
+
+def run_both(port_main, jax_main, argv: list[str], out: Path) -> None:
+    """The port's CLI on the CPU into ``out/port``, JAX's into ``out/jax``."""
+    port_main(argv + ["--out_dir", str(out / "port"), "--device", "cpu"])
+    jax_main(argv + ["--out_dir", str(out / "jax")])
+
+
+def assert_csv_close(out: Path, name: str, tol: float, rel: float = 0.0,
+                     cols: dict[str, tuple[float, float]] | None = None) -> None:
+    """The port's CSV against JAX's: the same columns in the same order, the
+    same strings and integers, floats within tol + rel * |value| (`cols`
+    gives a column its own (tol, rel))."""
+    import pandas as pd
+
+    got = pd.read_csv(out / "port" / name)
+    want = pd.read_csv(out / "jax" / name)
+    assert list(got.columns) == list(want.columns), name
+    assert got.shape == want.shape, name
+    for col in want.columns:
+        g, w = got[col].to_numpy(), want[col].to_numpy()
+        if not pd.api.types.is_numeric_dtype(want[col]):
+            assert (g == w).all(), (name, col)
+        else:
+            t_, r_ = (cols or {}).get(col, (tol, rel))
+            err = np.abs(g.astype(np.float64) - w)
+            assert (err <= t_ + r_ * np.abs(w)).all(), (name, col, err.max())

@@ -127,8 +127,8 @@ import nawc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(nawc_tpu_torch.__path__, "nawc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the codec-latent families, PGD, the neural watermark, the trainers and
-# the CLIs that load them lazily are walked too
+# the codec-latent families, PGD, the neural watermark, the trainers, the
+# interpretability layer and the CLIs that load them lazily are walked too
 assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
         "nawc_tpu_torch.models.resampled", "nawc_tpu_torch.attacks.pgd",
         "nawc_tpu_torch.cli.benchmark", "nawc_tpu_torch.cli.watermark",
@@ -137,10 +137,18 @@ assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
         "nawc_tpu_torch.train.adversarial", "nawc_tpu_torch.train.optim",
         "nawc_tpu_torch.cli.train_wm", "nawc_tpu_torch.cli.train_codec",
         "nawc_tpu_torch.cli.train_gan", "nawc_tpu_torch.cli.eval_codec",
-        "nawc_tpu_torch.cli.__main__"} <= set(names)
+        "nawc_tpu_torch.cli.__main__", "nawc_tpu_torch.interp.probe",
+        "nawc_tpu_torch.interp.spectral", "nawc_tpu_torch.interp.saliency",
+        "nawc_tpu_torch.interp.uncertainty", "nawc_tpu_torch.interp.ablation",
+        "nawc_tpu_torch.interp.manifold", "nawc_tpu_torch.interp.latent_pca",
+        "nawc_tpu_torch.cli.probe", "nawc_tpu_torch.cli.perturbation",
+        "nawc_tpu_torch.cli.uncertainty", "nawc_tpu_torch.cli.ablation",
+        "nawc_tpu_torch.cli.manifold", "nawc_tpu_torch.cli.pgd",
+        "nawc_tpu_torch.cli.stats"} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.codec_latent) and callable(chip_smoke.pgd_phase)
 assert callable(chip_smoke.neural_phase) and callable(chip_smoke.training_phase)
+assert callable(chip_smoke.interp_phase)
 from nawc_tpu_torch.codec import make_codec
 from nawc_tpu_torch.entry import entry
 from nawc_tpu_torch.utils.config import CodecConfig

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import assert_gradient_close as _assert_gradient_close
+from _torch_port import speech as _speech
 from _torch_port import t, tiny_codecs
 from nawc_tpu.attacks import pgd as jpgd
 from nawc_tpu.models import SpreadSpectrumWM as JaxSS
@@ -28,23 +30,6 @@ from nawc_tpu_torch.models import SpreadSpectrumWM
 from nawc_tpu_torch.utils.config import SpreadSpectrumConfig
 
 EPS, LR = 0.02, 0.001
-
-
-def _speech(sr: int, n: int, seconds: float, seed: int) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    tt = np.arange(int(sr * seconds)) / sr
-    f0 = rng.uniform(110, 220, (n, 1))
-    env = np.clip(np.sin(2 * np.pi * rng.uniform(3, 5, (n, 1)) * tt), 0, None) ** 2
-    tone = sum(np.sin(2 * np.pi * h * f0 * tt) / h for h in range(1, 6)) * env
-    return (0.2 * tone + 0.01 * rng.normal(size=(n, tt.size))).astype(np.float32)
-
-
-def _assert_gradient_close(got: np.ndarray, want: np.ndarray) -> None:
-    scale = np.abs(want).max()
-    assert scale > 0
-    err = np.abs(got - want)
-    assert err.max() <= 1e-3 * scale, (err.max(), scale)
-    assert (err > 1e-4 * scale).mean() <= 0.01, (err > 1e-4 * scale).mean()
 
 
 @pytest.fixture(scope="module")
