@@ -49,8 +49,8 @@ Phases, each printing its seconds:
    average), decode rel-rms against float32 (under 0.1), and the time per
    batch of embed + bf16 encode + detect beside phase 6's float32 figure;
 10. codec-latent watermarks: ``run_combined`` of semantic_pca,
-   semantic_cluster, semantic_random and token_green at their operating
-   point (300 Adam steps) on 4 seeded speech-like clips of 2 s at 16 kHz,
+   semantic_cluster, semantic_random and token_green at 200 of their
+   operating point's 300 Adam steps on 4 seeded speech-like clips of 2 s at 16 kHz,
    resampled to the codec's 24 kHz as ``cli/benchmark.py`` does, with the
    24 kHz suite.  Every ``rvq_encode_fused`` and ``nearest_codebook`` call
    is held against its plain version on its own inputs (so cuDNN's
@@ -100,7 +100,26 @@ Phases, each printing its seconds:
    version on its own inputs; all three kernels must launch.  It prints
    the seconds of each CLI and saliency call, the uncertainty's host
    draws, the peak memory of the saliency calls and of ``exp_c``, and the
-   device split of one IG step.
+   device split of one IG step;
+15. quality and parallel: ``scipy.signal`` must import (the host metrics
+   resample with it); the quality CLI in-process at its defaults
+   (``--watermark spread_spectrum`` on 16 speech-like WAVs of 2 s at 16
+   kHz, ``--results_dir`` over the artifact tree that ``save_artifacts``
+   writes from phase 8's 16 x 4 s clips, marked and attacked by ``dac``,
+   and ``--summarize_dir``): seconds per run, the host's share (exact STOI
+   and PESQ), the column means, ``pesq_impl``; every metric finite, PESQ
+   within the proxy's range, exact STOI 1.0 on identical pairs.  Then a
+   process group of one over NCCL: ``make_sharded_eval`` on the main
+   path's batch equal to the entry's outputs bit for bit, one
+   ``make_codec_train_step(..., mesh=)`` step (DDP) at ``train_codec``'s
+   defaults (16 x 32768, the trained weights) with every metric within
+   1e-5 of the meshless step from the same state, ``tp_nearest_codebook``
+   over the trained level-0 codebook equal to ``nearest_codebook``, and the
+   shard combine over 2, 4 and 8 slices of it (each slice through the
+   lookup kernel) equal to the whole lookup but at near-ties; every sswm
+   and lookup call held against plain, both kernels launched; a
+   ``StageTimer`` summary and one ``trace()`` of the sharded evaluation,
+   reporting whether the trace names the kernels.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -149,7 +168,8 @@ from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
 from nawc_tpu_torch.train.adversarial import (  # noqa: E402
     decoder_only_tx, init_discriminators, make_gan_train_step)
 from nawc_tpu_torch.train.codec_train import (  # noqa: E402
-    init_codec_train, make_codec_train_step, revive_dead_codes, speech_batches, trainable_codec)
+    CodecTrainState, init_codec_train, make_codec_train_step, make_optimizer, revive_dead_codes,
+    speech_batches, trainable_codec)
 from nawc_tpu_torch.train.optim import AdamW  # noqa: E402
 from nawc_tpu_torch.train.wm_train import init_wm_train, make_wm_train_step  # noqa: E402
 from nawc_tpu_torch.utils import jaxrand  # noqa: E402
@@ -701,6 +721,7 @@ def bf16_codec(codec, codec16, marked: torch.Tensor) -> dict:
 # ------------------------------------------------------------------ phase 10
 
 LATENT_METHODS = ("semantic_pca", "semantic_cluster", "semantic_random", "token_green")
+LATENT_ADAM_STEPS = 200  # of the operating point's 300, to fit the script's budget
 
 
 class TimedEmbed:
@@ -741,15 +762,14 @@ def step_by_kind(wm, x: torch.Tensor, steps: int = 10) -> dict[str, float]:
     return {k: v / steps for k, v in by_kind(device_events(lambda: short.embed(x))).items()}
 
 
-def codec_latent(codec, dev, n_clips: int = 4, seconds: float = 2.0, steps: int | None = None) -> dict:
-    """Phase 10; `steps` replaces the operating point's 300 Adam steps
-    (for a rehearsal on the CPU only)."""
+def codec_latent(codec, dev, n_clips: int = 4, seconds: float = 2.0, steps: int = LATENT_ADAM_STEPS) -> dict:
+    """Phase 10; `steps` replaces the operating point's 300 Adam steps of
+    each embed."""
     wav16 = torch.as_tensor(np.stack(speech_clips(n_clips, seconds, 16_000, seed=13)), device=dev)
     wav24 = resample(wav16, 16_000, 24_000)  # as cli/benchmark.py feeds the codec-latent methods
-    wms = build_watermarkers(list(LATENT_METHODS), codec)
-    if steps is not None:
-        wms = {n: dataclasses.replace(w, cfg=dataclasses.replace(w.scfg, steps=steps))
-               if hasattr(w, "scfg") else dataclasses.replace(w, steps=steps) for n, w in wms.items()}
+    wms = {n: dataclasses.replace(w, cfg=dataclasses.replace(w.scfg, steps=steps))
+           if hasattr(w, "scfg") else dataclasses.replace(w, steps=steps)
+           for n, w in build_watermarkers(list(LATENT_METHODS), codec).items()}
     timed = {n: TimedEmbed(w) for n, w in wms.items()}
     suite = build_suite(24_000, codec)
     _lib.reset_launches()
@@ -1286,6 +1306,222 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+QUALITY_COLS = ("si_snr_clean", "si_snr_watermarked", "delta_si_snr", "snr", "lsd", "stoi", "stoi_dev",
+                "lsd_native", "pesq")
+
+
+def quality_runs(codec, dev, clean16: np.ndarray, d: Path, cli_args: tuple[str, ...] = ()) -> dict:
+    """The quality CLI in-process at its defaults: ``--watermark
+    spread_spectrum`` on 16 x 2 s speech-like WAVs, ``--results_dir`` over
+    the artifact tree that ``save_artifacts`` writes from phase 8's clips
+    marked by the spread-spectrum watermark and attacked by ``dac``, then
+    ``--summarize_dir``; the seconds of each run and its host share (exact
+    STOI and PESQ)."""
+    from nawc_tpu_torch.cli import quality as quality_cli
+    from nawc_tpu_torch.cli.stats import load_table
+    from nawc_tpu_torch.eval import pesq_proxy, quality, stoi_exact
+    from nawc_tpu_torch.eval.metrics import pesq_impl
+    from nawc_tpu_torch.eval.reporting import save_artifacts
+
+    for i, clip in enumerate(speech_clips(16, 2.0, 16_000, seed=18)):
+        write_wav(d / "wav" / f"speech{i}.wav", clip, 16_000)
+    ss = SpreadSpectrumWM(SpreadSpectrumConfig(alpha=0.1))
+    key = jaxrand.prng_key(0)
+    with torch.no_grad():
+        x = torch.as_tensor(clean16, device=dev)
+        marked = ss.embed(x, random_message(key, x.shape[0], ss.n_bits, device=dev))
+        attacked = build_suite(16_000, codec)["dac"](marked, key)
+    for i in range(x.shape[0]):
+        save_artifacts(d / "artifacts", f"spread_spectrum_{i}", *(
+            v[i].cpu().numpy() for v in (x, marked, attacked)), 16_000)
+
+    host = {"stoi": 0.0, "pesq": 0.0}
+    stoi_batch, pesq_host = stoi_exact.stoi_exact_batch, quality.pesq_host
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[name] += time.perf_counter() - t0
+        return run
+
+    runs = [("watermark", ["--watermark", "spread_spectrum", "--audio_glob", str(d / "wav" / "*.wav"),
+                           "--out_csv", str(d / "out" / "spread_spectrum_quality_results.csv")]),
+            ("results_dir", ["--results_dir", str(d / "artifacts"),
+                             "--out_csv", str(d / "out" / "artifacts_quality_results.csv")]),
+            ("summarize_dir", ["--summarize_dir", str(d / "out")])]
+    out: dict = {"s": {}, "host s": {}}
+    try:
+        stoi_exact.stoi_exact_batch = timed("stoi", stoi_batch)
+        quality.pesq_host = timed("pesq", pesq_host)
+        for label, argv in runs:
+            host.update(stoi=0.0, pesq=0.0)
+            _, ms = synced_ms(lambda: quality_cli.main(argv + list(cli_args)))
+            out["s"][label], out["host s"][label] = ms / 1e3, dict(host)
+    finally:
+        stoi_exact.stoi_exact_batch, quality.pesq_host = stoi_batch, pesq_host
+
+    tables = {name: load_table(str(d / "out" / f"{name}_quality_results.csv"))
+              for name in ("spread_spectrum", "artifacts")}
+    summary = load_table(str(d / "out" / "quality_summary.csv"))
+    for name, rows in tables.items():
+        check(len(rows) == 16, f"quality {name}: {len(rows)} rows")
+        for col in QUALITY_COLS[1:]:
+            check(all(np.isfinite(r[col]) for r in rows), f"quality {name}: {col} not finite")
+        check(all(pesq_proxy._CLIP[0] <= r["pesq"] <= pesq_proxy._CLIP[1] for r in rows),
+              f"quality {name}: PESQ outside {pesq_proxy._CLIP}")
+        out[name] = {c: mean_of(rows, c) for c in QUALITY_COLS}
+    check([r["method"] for r in summary] == ["artifacts", "spread_spectrum"]
+          and all(r["pesq_impl"] == pesq_impl() for r in summary), f"quality summary {summary}")
+    same = stoi_batch(clean16[:4], clean16[:4], 16_000)
+    check(bool(np.all(np.abs(same - 1.0) <= 1e-9)), f"exact STOI of identical pairs {same}")
+    for label in out["s"]:
+        h = out["host s"][label]
+        print(f"quality {label}: {out['s'][label]:.2f} s, host exact STOI {h['stoi']:.2f} s and PESQ "
+              f"{h['pesq']:.2f} s ({100 * (h['stoi'] + h['pesq']) / out['s'][label]:.0f}%)")
+    for name in tables:
+        print(f"quality {name} means: " + ", ".join(f"{k} {v:.4f}" for k, v in out[name].items()))
+    print(f"pesq_impl {pesq_impl()}; exact STOI of 4 identical pairs {same.tolist()}")
+    out["pesq_impl"] = pesq_impl()
+    return out
+
+
+def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_out, d: Path,
+                  train_batch: tuple[int, int] = (16, 32_768)) -> dict:
+    """At world size 1 (NCCL on the card): the sharded evaluation of the
+    main path's batch against the entry's outputs bit for bit, one
+    data-parallel codec train step against the meshless step from the same
+    state, the tensor-parallel lookup of the level-0 codebook, and the
+    combine over 2, 4 and 8 slices of that codebook in one process; every
+    kernel call held against plain; a StageTimer summary and one trace of
+    the sharded evaluation."""
+    import torch.distributed as dist
+
+    from nawc_tpu_torch.parallel import combine_shards, make_mesh, make_sharded_eval, tp_nearest_codebook
+    from nawc_tpu_torch.parallel import tp as tp_module
+    from nawc_tpu_torch.utils.profiling import StageTimer, trace
+
+    marked_e, presence_e, bits_e = entry_out
+    timer = StageTimer()
+    out: dict = {}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=dev.type)
+        print(f"mesh {mesh.shape} over {dist.get_backend()} on {mesh.device}")
+        run = make_sharded_eval(codec, wm, mesh)
+        run.gather(*run(wav, msg))  # cuFFT's, cuDNN's and NCCL's warm-up
+        _lib.reset_launches()
+        with Recorder(ss_module, "whiten_correlate") as sw, Recorder(codec_model, "nearest_codebook") as lk:
+            with timer.stage("sharded eval (16 x 4 s)") as box:
+                box["result"] = shards = run.gather(*run(wav, msg))
+        marked, attacked, presence, bits = shards
+        with timer.stage("codec round-trip (entry's)") as box:
+            box["result"] = attacked_e = codec_roundtrip(codec, marked_e, in_sr=wm.sample_rate)
+        for label, a, b in [("marked", marked, marked_e), ("attacked", attacked, attacked_e),
+                            ("presence", presence, presence_e), ("bits", bits, bits_e)]:
+            check(torch.equal(a, b), f"sharded eval: {label} differs from the entry's by "
+                  f"{float((a.float() - b.float()).abs().max())}")
+        print("sharded eval equals the entry path bit for bit (marked, attacked, presence, bits)")
+
+        # the trained codec's weights (the seeded init's host draws take
+        # longer than this whole phase), train_codec's optimiser defaults
+        model = trainable_codec(CodecConfig(), 0, dev, tree=load_params(CHECKPOINT))
+        state = CodecTrainState(model, make_optimizer(model.parameters(), lr=3e-4, total=20_000), 0)
+        twin = copy.deepcopy(state)
+        n, samples = train_batch
+        w = torch.as_tensor(np.stack(speech_clips(n, samples / SR, SR, seed=19)), device=dev)
+        with Recorder(codec_model, "nearest_codebook", clone=True) as lt:
+            with timer.stage("codec step, meshless") as box:
+                box["result"] = want = make_codec_train_step(CodecConfig())(twin, w)
+            with timer.stage("codec step, mesh (DDP)") as box:
+                box["result"] = got = make_codec_train_step(CodecConfig(), mesh=mesh)(state, w)
+        del twin, state, model
+        for k, v in want.items():
+            if k.startswith("usage_"):
+                check(torch.equal(got[k], v), f"dp step: {k} differs")
+            else:
+                a, b = float(got[k]), float(v)
+                check(np.isfinite(a) and abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-6),
+                      f"dp step: {k} {a} against {b} meshless")
+        print(f"dp codec step ({n} x {samples}): every metric within 1e-5 of the meshless step: "
+              + ", ".join(f"{k} {float(got[k]):.5f}" for k in ("loss", "stft", "si_snr")))
+
+        cb = codec.model.quantizer.levels[0].codebook.detach()
+        z = next(a[0] for a, _ in lk.calls if a[1].data_ptr() == cb.data_ptr())
+        with Recorder(tp_module, "nearest_codebook") as tk:
+            whole = rvq.nearest_codebook(z, cb)
+            with timer.stage("tp lookup, level 0") as box:
+                box["result"] = codes = tp_nearest_codebook(z, cb, mesh)
+            check(torch.equal(codes, whole), "tp_nearest_codebook differs from nearest_codebook")
+            margin = rvq.score_margin(z, cb)
+            near = {}
+            for n_slices in (2, 4, 8):
+                rows = cb.shape[0] // n_slices
+                with timer.stage(f"combine over {n_slices} slices") as box:
+                    pairs = [tp_module.shard_best(z, cb[s * rows:(s + 1) * rows], s * rows)
+                             for s in range(n_slices)]
+                    box["result"] = combined = combine_shards(torch.stack([p[0] for p in pairs]),
+                                                              torch.stack([p[1] for p in pairs]))
+                near[n_slices] = parity.near_tie_mismatches(combined, whole, margin)
+                parity.check_share(near[n_slices], whole.numel(), f"combine over {n_slices} slices")
+        print(f"tp lookup of {tuple(z.shape)} over the level-0 codebook {tuple(cb.shape)} equals "
+              f"nearest_codebook; the combine over 2 / 4 / 8 slices: near-tie codes off the whole "
+              f"lookup {near}")
+        torch.cuda.synchronize()
+        launches = {n_: k.launches for n_, k in _lib.KERNELS.items()}
+
+        s, c = check_sswm_calls(sw.calls, wm.presence_z0), check_lookup_calls(lk.calls + lt.calls + tk.calls)
+        print(f"parallel: launches {launches}")
+        print(f"  whiten_correlate calls {s['shapes']}, max|z - plain| {s['max_err']:.3g}; "
+              f"nearest_codebook calls {c['shapes']}: {c['near_codes']} of {c['frames']} codes differ "
+              "(near-ties)")
+        for n_ in ("whiten_correlate", "nearest_codebook"):
+            check(launches[n_] > 0, f"parallel: kernel {n_} was not launched")
+
+        with trace(d / "trace"):
+            run.gather(*run(wav, msg))
+        path = d / "trace" / "trace.json"
+        check(path.exists() and path.stat().st_size > 0, "no trace written")
+        text = path.read_text()
+        names = {k: k in text for k in ("sswm_correlate_kernel", "nearest_codebook_kernel")}
+        print(f"trace of the sharded eval: {path.stat().st_size} bytes; names the kernels: {names}")
+        print(timer.summary())
+        out.update(launches=launches, trace_names=names, near=near,
+                   stages={k: v / timer.counts[k] for k, v in timer.totals.items()})
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def quality_parallel_phase(dev, codec, wm, wav: torch.Tensor, msg: torch.Tensor, entry_out,
+                           clean16: np.ndarray, cli_args: tuple[str, ...] = (),
+                           train_batch: tuple[int, int] = (16, 32_768)) -> dict:
+    """Phase 15: scipy present, the quality CLI's three modes, then the
+    parallel paths at world size 1.  `cli_args` and `train_batch` are for a
+    rehearsal on the CPU only."""
+    import scipy.signal  # noqa: F401  (the host metrics resample with it; its absence fails the phase)
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        out = {"quality": quality_runs(codec, dev, clean16, d, cli_args)}
+        out["parallel"] = parallel_runs(codec, dev, wm, wav, msg, entry_out, d, train_batch)
+    out["launches"] = out["parallel"]["launches"]
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1476,6 +1712,9 @@ def main() -> int:
     with phase("14 interpretability"):
         interp = interp_phase(dev, wm, marked, msg, swept["spread_spectrum"]["rows"])
 
+    with phase("15 quality and parallel"):
+        qp = quality_parallel_phase(dev, codec, wm, wav, msg, (marked, presence, bits), np.stack(x16))
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
@@ -1495,6 +1734,7 @@ def main() -> int:
             "neural_launches": neural["launches"][n],
             "train_launches": train["launches"][n],
             "interp_launches": interp["launches"][n],
+            "quality_parallel_launches": qp["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,7 @@ Usage (add --device cpu to run on the CPU):
 It writes ``layer_ablation.csv`` under ``--out_dir``, with the JAX CLI's
 columns, and prints the (mask x watermark) table of mean scores.  The
 heatmap and per-watermark bar PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A8).
+matplotlib (ROADMAP.md A15).
 """
 
 from __future__ import annotations

@@ -50,17 +50,6 @@ def _mean_by(rows: list[dict], keys: tuple[str, ...], col: str) -> dict[tuple, f
     return {k: float(np.mean(v)) for k, v in sorted(groups.items())}
 
 
-def _save_artifacts(out_dir: Path, name: str, clean, marked, attacked, sr: int) -> None:
-    """The three WAVs of one clip (the JAX CLI also draws a comparison PNG)."""
-    from ..utils import audio_io
-
-    out = out_dir / name
-    out.mkdir(parents=True, exist_ok=True)
-    audio_io.write_wav(out / "1_original.wav", clean, sr)
-    audio_io.write_wav(out / "2_watermarked.wav", marked, sr)
-    audio_io.write_wav(out / "3_attacked.wav", attacked, sr)
-
-
 def main(argv=None) -> None:
     from .common import DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers, load_audio_batch, load_codec
 
@@ -99,6 +88,7 @@ def main(argv=None) -> None:
     from ..attacks import build_suite
     from ..dsp.resample import resample
     from ..eval import run_combined, run_detector_checker, run_survivability, write_csv
+    from ..eval.reporting import save_artifacts
     from ..models.base import random_message
     from ..utils import jaxrand
     from ..utils.device import float32_parity, resolve_device
@@ -191,7 +181,7 @@ def main(argv=None) -> None:
                 marked = wm.embed(wav_a)
             attacked = attack(marked, key)
         for i in range(min(args.artifacts, wav_a.shape[0])):
-            _save_artifacts(out / "artifacts", f"{name}_{i}", *(
+            save_artifacts(out / "artifacts", f"{name}_{i}", *(
                 x[i].cpu().numpy() for x in (wav_a, marked, attacked)), wm.sample_rate)
 
 

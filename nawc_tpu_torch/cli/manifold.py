@@ -9,7 +9,7 @@ Usage (add --device cpu to run on the CPU):
 It writes ``manifold_analysis.csv`` under ``--out_dir``, with the JAX CLI's
 columns, and prints the per-watermark means.  The per-clip triplet plots
 and the global manifold PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A8).
+matplotlib (ROADMAP.md A15).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Usage (add --device cpu to run on the CPU):
 
 It writes ``perturbation_analysis.csv`` under ``--out_dir``, with the JAX
 CLI's columns.  The SNR histogram and footprint PNGs are not drawn: the
-port does not use matplotlib (ROADMAP.md A8).
+port does not use matplotlib (ROADMAP.md A15).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ Usage (add --device cpu to run on the CPU):
 
 Each mode writes the JAX CLI's CSVs, with its columns, under ``--out_dir``.
 The baselines' and exp_c's PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A8).  The PCA is fitted on the device, so its
+matplotlib (ROADMAP.md A15).  The PCA is fitted on the device, so its
 components' signs are cuSOLVER's on the card (ROADMAP.md C).
 """
 

@@ -8,7 +8,7 @@ Usage (add --device cpu to run on the CPU):
 It writes ``shards/<attack>.csv``, ``test_results.csv`` (pipe-delimited),
 ``overall_stats.csv`` and ``stats_by_attack.csv`` under ``--out_dir``.  The
 JAX CLI's box plot of SI-SNR by attack is not drawn: the port does not use
-matplotlib (ROADMAP.md A8).
+matplotlib (ROADMAP.md A15).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ Usage:
 It writes ``stats_by_group.csv``, ``overall_stats.csv`` and, when the
 target is a column, ``feature_importance.csv`` under ``--out_dir``, with the
 JAX CLI's columns.  The top-K bar plot is not drawn: the port does not use
-matplotlib (ROADMAP.md A8).  It runs on the host only.
+matplotlib (ROADMAP.md A15).  It runs on the host only.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ It writes ``uncertainty_results.csv`` and ``reliability_curve.csv`` under
 ``--out_dir``, with the JAX CLI's columns, and prints the accuracy, the
 variance-error AUC and the ECE.  The box plots, histogram, ROC and
 reliability PNGs are not drawn: the port does not use matplotlib
-(ROADMAP.md A8).
+(ROADMAP.md A15).
 """
 
 from __future__ import annotations

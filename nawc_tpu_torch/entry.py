@@ -1,10 +1,10 @@
 """The port's flagship entry (``__graft_entry__.py::entry``): watermark
 embed -> codec round-trip (the LALM attack) -> detect.
 
-The path runs in float32: :func:`entry` turns TF32 off for cuDNN
-convolutions and cuBLAS matrix products, which PyTorch would otherwise use
-for the codec's convolutions, and which would break parity with the JAX
-reference.
+The path runs in float32: each call of the returned ``fn`` turns TF32 off
+for cuDNN convolutions and cuBLAS matrix products, which PyTorch would
+otherwise use for the codec's convolutions and which would break parity with
+the JAX reference, and restores the caller's flags after it.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from .attacks.codec import codec_roundtrip
 from .codec.api import CodecState, make_codec
 from .models.spread_spectrum import SpreadSpectrumWM
 from .utils.config import CodecConfig, SpreadSpectrumConfig
-from .utils.device import float32_parity, resolve_device
+from .utils.device import no_tf32, resolve_device
 
 
 def flagship(codec: CodecState | None = None, device: str | torch.device = "cuda",
@@ -33,11 +33,11 @@ def flagship(codec: CodecState | None = None, device: str | torch.device = "cuda
 def entry(codec: CodecState | None = None, device: str | torch.device = "cuda"):
     """-> (fn, example_args); ``fn(wav, msg) -> (marked, presence, bits)``."""
     dev = resolve_device(device)
-    float32_parity()
     codec, wm = flagship(codec, dev)
     sr = codec.cfg.sample_rate
 
     @torch.no_grad()
+    @no_tf32()
     def fn(wav: torch.Tensor, msg: torch.Tensor):
         marked = wm.embed(wav, msg)
         attacked = codec_roundtrip(codec, marked, in_sr=sr)

@@ -7,7 +7,9 @@ from .benchmark import (
     run_detector_checker,
     run_survivability,
 )
-from .metrics import lsd, si_sdr, si_snr, snr, stoi
+from . import reporting
+from .metrics import lsd, pesq_host, si_sdr, si_snr, snr, stoi
+from .quality import evaluate_pair_batch, evaluate_pairs, make_pairs
 from .robustness import (
     chunk_audio,
     overall_stats,
@@ -19,9 +21,11 @@ from .robustness import (
 )
 
 __all__ = [
-    "si_snr", "snr", "lsd", "stoi", "si_sdr",
+    "si_snr", "snr", "lsd", "stoi", "si_sdr", "pesq_host",
     "run_detector_checker", "run_survivability", "run_combined", "CombinedReport",
     "find_optimal_threshold", "detection_auc", "DEFAULT_THRESHOLDS",
     "run_robustness", "chunk_audio", "write_results_csv", "write_csv", "read_csv",
     "overall_stats", "stats_by_attack",
+    "evaluate_pairs", "evaluate_pair_batch", "make_pairs",
+    "reporting",
 ]

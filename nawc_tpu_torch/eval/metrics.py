@@ -1,6 +1,8 @@
-"""Audio-quality metrics, batched on the device (``nawc_tpu/eval/metrics.py``):
-SI-SNR, SNR, log-spectral distance and the short-time intelligibility
-approximation.  PESQ waits for ``eval/quality`` (ROADMAP A8).
+"""Audio-quality metrics (``nawc_tpu/eval/metrics.py``): SI-SNR, SNR,
+log-spectral distance and the short-time intelligibility approximation,
+batched on the device; PESQ-wb on the host (:func:`pesq_host`: the ITU
+``pesq`` package when it imports, else the calibrated proxy of
+``eval/pesq_proxy.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,43 @@ def stoi(ref: torch.Tensor, est: torch.Tensor, sample_rate: int = 16_000) -> tor
     corr = (rm * em).sum(dim=-2) / (
         torch.linalg.vector_norm(rm, dim=-2) * torch.linalg.vector_norm(em, dim=-2) + _EPS)
     return corr.mean(dim=(-2, -1))
+
+
+def pesq_host(ref: np.ndarray, est: np.ndarray, sample_rate: int) -> float:
+    """PESQ-wb on the host.  Prefers the ITU `pesq` package (both signals
+    resampled to 16 kHz wideband first: the package rejects other rates);
+    when it does not import, the calibrated Bark-disturbance proxy
+    (``eval/pesq_proxy.py``).  NaN when the measure fails.
+    :func:`pesq_impl` says which one is active."""
+    ref = np.asarray(ref, np.float64).reshape(-1)
+    est = np.asarray(est, np.float64).reshape(-1)
+    try:
+        from pesq import pesq as _pesq  # type: ignore
+
+        from .pesq_proxy import _to_16k
+
+        try:
+            return float(_pesq(16_000, _to_16k(ref, sample_rate), _to_16k(est, sample_rate), "wb"))
+        except Exception:
+            return float("nan")
+    except ImportError:
+        pass
+    try:
+        from .pesq_proxy import pesq_proxy
+
+        return pesq_proxy(ref, est, sample_rate)
+    except Exception:
+        return float("nan")
+
+
+def pesq_impl() -> str:
+    """'itu' when the `pesq` package is importable, else 'proxy'."""
+    try:
+        import pesq  # type: ignore  # noqa: F401
+
+        return "itu"
+    except ImportError:
+        return "proxy"
 
 
 def si_sdr(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:

@@ -124,6 +124,11 @@ def presence_prob(logits: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits[..., :2], dim=-1)[..., 1].mean(dim=-1)
 
 
+def decode_bits(logits: torch.Tensor) -> torch.Tensor:
+    """(B, T, 2+n) -> (B, n) hard bits from time-averaged logits."""
+    return (logits[..., 2:].mean(dim=-2) > 0).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class NeuralWM:
     """Watermarker API over a generator and a detector.

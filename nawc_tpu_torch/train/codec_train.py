@@ -14,6 +14,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..codec.api import flax_init_tree
 from ..codec.convert import flax_to_state_dict
@@ -39,13 +41,40 @@ class CodecTrainState:
     step: int
 
 
-def multires_stft_loss(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
-    """Multi-resolution STFT loss: spectral convergence + log-magnitude L1."""
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over a process group; each process's input gets
+    the sum of the group's output gradients."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def multires_stft_loss(ref: torch.Tensor, est: torch.Tensor, group=None) -> torch.Tensor:
+    """Multi-resolution STFT loss: spectral convergence + log-magnitude L1.
+
+    With a process `group` whose processes each hold an equal shard of the
+    batch, the spectral convergence's two norms are taken over the whole
+    batch (a differentiable all-reduce): the group's mean of the loss and of
+    its gradient is then the whole batch's."""
     total = 0.0
     for scfg, _ in MEL_SCALES:
         s_ref = stft(ref, scfg).abs()
         s_est = stft(est, scfg).abs()
-        sc = torch.linalg.norm(s_ref - s_est) / (torch.linalg.norm(s_ref) + 1e-6)
+        if group is None:
+            sc = torch.linalg.norm(s_ref - s_est) / (torch.linalg.norm(s_ref) + 1e-6)
+        else:
+            sq = _GroupSum.apply(torch.stack([((s_ref - s_est) ** 2).sum(), (s_ref ** 2).sum()]), group)
+            sc = sq[0].sqrt() / (sq[1].sqrt() + 1e-6)
         logmag = torch.mean(torch.abs(torch.log(s_ref + 1e-5) - torch.log(s_est + 1e-5)))
         total = total + sc + logmag
     return total / len(MEL_SCALES)
@@ -61,14 +90,16 @@ def mel_l1(wav: torch.Tensor, est: torch.Tensor, sample_rate: int, scales=MEL_SC
     return total / len(scales)
 
 
-def codec_loss(cfg: CodecConfig, model: SnacCodec, wav: torch.Tensor, sisnr_weight: float = 0.0):
+def codec_loss(cfg: CodecConfig, model: SnacCodec, wav: torch.Tensor, sisnr_weight: float = 0.0,
+               group=None):
     """wav (B, T) at cfg.sample_rate -> (scalar loss, metrics dict); the
-    metrics hold each level's codebook usage histogram (``usage_i``)."""
+    metrics hold each level's codebook usage histogram (``usage_i``).
+    `group`: see :func:`multires_stft_loss`."""
     out = model(wav)
     recon = out["recon"]
     l1 = torch.mean(torch.abs(recon - wav))
     mel_l = mel_l1(wav, recon, cfg.sample_rate)
-    stft_l = multires_stft_loss(wav, recon)
+    stft_l = multires_stft_loss(wav, recon, group)
     sisnr = si_snr(wav, recon).mean()
     loss = (1.0 * l1 + 1.0 * mel_l + 1.0 * stft_l
             + 0.25 * out["commit_loss"] + 1.0 * out["codebook_loss"] - sisnr_weight * sisnr)
@@ -106,19 +137,50 @@ def init_codec_train(seed: int, cfg: CodecConfig, device: str | torch.device = "
     return CodecTrainState(model, make_optimizer(model.parameters(), **opt_kwargs), 0)
 
 
-def make_codec_train_step(cfg: CodecConfig, sisnr_weight: float = 0.0):
+def make_codec_train_step(cfg: CodecConfig, sisnr_weight: float = 0.0, mesh=None):
     """-> step(state, wav) -> metrics: one forward, backward and update of
-    ``state`` in place (single device)."""
+    ``state`` in place.
 
-    def step(state: CodecTrainState, wav: torch.Tensor) -> dict:
-        state.opt.zero_grad()
-        loss, metrics = codec_loss(cfg, state.model, wav, sisnr_weight)
-        loss.backward()
-        state.opt.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+    With a :class:`~nawc_tpu_torch.parallel.Mesh`, ``wav`` is the whole
+    batch and each process trains on its "data" shard of it, the model
+    wrapped in ``DistributedDataParallel`` over the "data" group: the
+    averaged gradient, the update and the metrics (averaged over the group,
+    the usage histograms summed) are the whole batch's, as on one device."""
+    if mesh is None:
+        def step(state: CodecTrainState, wav: torch.Tensor) -> dict:
+            return _train_step(cfg, state, state.model, wav, sisnr_weight)
 
-    return step
+        return step
+
+    from ..parallel.mesh import shard_batch
+
+    group, n = mesh.group("data"), mesh.shape["data"]
+    wrapped: dict = {}
+
+    def dp_step(state: CodecTrainState, wav: torch.Tensor) -> dict:
+        if wrapped.get("model") is not state.model:
+            wrapped["model"] = state.model
+            wrapped["ddp"] = DistributedDataParallel(
+                state.model, device_ids=[mesh.device.index] if mesh.device.type == "cuda" else None,
+                process_group=group)
+        metrics = _train_step(cfg, state, wrapped["ddp"], shard_batch(wav, mesh), sisnr_weight, group)
+        for k, v in metrics.items():
+            dist.all_reduce(v, group=group)
+            if not k.startswith("usage_"):
+                v /= n
+        return metrics
+
+    return dp_step
+
+
+def _train_step(cfg: CodecConfig, state: CodecTrainState, model, wav: torch.Tensor,
+                sisnr_weight: float, group=None) -> dict:
+    state.opt.zero_grad()
+    loss, metrics = codec_loss(cfg, model, wav, sisnr_weight, group)
+    loss.backward()
+    state.opt.step()
+    state.step += 1
+    return {k: v.detach() for k, v in metrics.items()}
 
 
 def make_codec_eval_fn(cfg: CodecConfig):

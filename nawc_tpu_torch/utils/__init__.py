@@ -1,7 +1,8 @@
 from .config import (CodecConfig, MelConfig, NeuralWMConfig, SemanticWMConfig,
                      SpreadSpectrumConfig, StftConfig)
 from .device import resolve_device
-from .padding import bucket_length, fix_length, pad_axis_to, pad_to_multiple
+from . import audio_io
+from .padding import bucket_length, fix_length, length_mask, pad_axis_to, pad_to_multiple
 
 __all__ = [
     "CodecConfig",
@@ -15,4 +16,6 @@ __all__ = [
     "fix_length",
     "pad_axis_to",
     "pad_to_multiple",
+    "length_mask",
+    "audio_io",
 ]

@@ -7,6 +7,8 @@ CPU numbers.  Tests pass ``device="cpu"`` explicitly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,7 +24,20 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 
 
 def float32_parity() -> None:
-    """Turn TF32 off for cuDNN and cuBLAS, for the whole process: they
-    default to TF32, which breaks float32 parity with the JAX reference."""
+    """Turn TF32 off for cuDNN and cuBLAS, for the whole process (the CLIs
+    do): they default to TF32, which breaks float32 parity with the JAX
+    reference."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuDNN and cuBLAS inside the block; the flags are
+    restored as they were on the way out, an exception included."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    float32_parity()
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

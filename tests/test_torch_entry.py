@@ -2,6 +2,7 @@
 the flagship entry, the codec attacks and the serving front door; and the
 isolation check that the port and chip_smoke.py need nothing of JAX."""
 
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -144,11 +145,16 @@ assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
         "nawc_tpu_torch.cli.probe", "nawc_tpu_torch.cli.perturbation",
         "nawc_tpu_torch.cli.uncertainty", "nawc_tpu_torch.cli.ablation",
         "nawc_tpu_torch.cli.manifold", "nawc_tpu_torch.cli.pgd",
-        "nawc_tpu_torch.cli.stats"} <= set(names)
+        "nawc_tpu_torch.cli.stats", "nawc_tpu_torch.eval.stoi_exact",
+        "nawc_tpu_torch.eval.pesq_proxy", "nawc_tpu_torch.eval.quality",
+        "nawc_tpu_torch.eval.reporting", "nawc_tpu_torch.cli.quality",
+        "nawc_tpu_torch.cli.sample_data", "nawc_tpu_torch.parallel.mesh",
+        "nawc_tpu_torch.parallel.tp", "nawc_tpu_torch.parallel.eval",
+        "nawc_tpu_torch.utils.profiling"} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.codec_latent) and callable(chip_smoke.pgd_phase)
 assert callable(chip_smoke.neural_phase) and callable(chip_smoke.training_phase)
-assert callable(chip_smoke.interp_phase)
+assert callable(chip_smoke.interp_phase) and callable(chip_smoke.quality_parallel_phase)
 from nawc_tpu_torch.codec import make_codec
 from nawc_tpu_torch.entry import entry
 from nawc_tpu_torch.utils.config import CodecConfig
@@ -157,8 +163,37 @@ marked, presence, bits = fn(*args)
 assert marked.shape == (2, 24000) and presence.shape == (2,) and bits.shape == (2, 16)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+# scipy is imported only where a host metric resamples
+assert "scipy" not in sys.modules
 print("isolated OK", len(names))
 """ % (TINY,)
+
+
+def test_entry_leaves_the_tf32_flags_as_it_found_them(codecs, monkeypatch):
+    """The entry turns TF32 off inside each call only: the caller's flags
+    (here both on) hold before and after it, also when the call raises."""
+    import nawc_tpu_torch.entry as entry_module
+
+    inside = []
+    roundtrip = entry_module.codec_roundtrip
+
+    def recorded(codec, marked, in_sr=None):
+        inside.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        if len(inside) == 2:
+            raise ValueError("a failing call")
+        return roundtrip(codec, marked, in_sr=in_sr)
+
+    monkeypatch.setattr(entry_module, "codec_roundtrip", recorded)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    fn, (wav, msg) = entry(codec=codecs[1], device="cpu")
+    flags = []
+    for _ in range(2):
+        with contextlib.suppress(ValueError):
+            fn(wav, msg)
+        flags.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+    assert inside == [(False, False)] * 2
+    assert flags == [(True, True)] * 2
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
