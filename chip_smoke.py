@@ -5,7 +5,8 @@
 
 Phases, each printing its seconds:
 
-0. card: name, device count, power limit; exit 1 without a CUDA device;
+0. card: name, device count, power limit, whether matplotlib is present
+   (the CLIs' PNGs); exit 1 without a CUDA device;
 1. build: one ``nvcc`` for each ``nawc_tpu_torch/csrc/*.cu``, all started
    together, linked into the git-ignored ``build/``, printing what
    ``-Xptxas -v`` reports;
@@ -21,6 +22,12 @@ Phases, each printing its seconds:
    kernel) beside the plain
    version's, their eager wall times, the least time the card could take
    and, for sswm, one ``torch.mm`` of the same contraction as a yardstick;
+   and the keyed-draw kernel (``csrc/jaxrand.cu``) bit for bit against the
+   numpy replica: the uncertainty run's 20.48 M normals, the sweep's
+   (32, 32000) normals and uniforms and vorbis's dither, odd lengths, a
+   flat index past one block, keys from split and fold_in, and the
+   attacks' uniform ranges, each with its device time, the replica's host
+   time and the bound;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -41,9 +48,11 @@ Phases, each printing its seconds:
    ``whiten_correlate`` and ``nearest_codebook`` call of the kernel runs is
    held against its plain version on the same inputs; the rows of the two
    runs must agree (bits and decisions equal except where a near-tie was
-   found), no row may carry an error, and both kernels must launch in the
-   sweep.  It prints each run's wall time, the slowest attacks and the
-   device time of one robustness run by kind;
+   found), no row may carry an error, and the kernels must launch in the
+   sweep; every keyed draw of the noise attacks runs on the card and is
+   held bit for bit against the plain run's (the replica's).  It prints
+   each run's wall time, the slowest attacks, the draws' device time and
+   the device time of one robustness run by kind;
 9. bf16 codec: the trained codec in bfloat16 on the main path's batch: code
    agreement with the float32 codec per level (JAX's bar: above 0.94 on
    average), decode rel-rms against float32 (under 0.1), and the time per
@@ -83,7 +92,8 @@ Phases, each printing its seconds:
    equal to plain on a copy of its inputs, ms per step, peak memory, the
    device split by kind and the losses; the GAN's encoder and quantizer
    bit for bit unchanged, and a checkpoint written by ``save_params`` read
-   back equal; then ``train_wm``, ``train_codec`` and ``train_gan`` as a
+   back equal; the watermark trainer's augmentation draws bit for bit the
+   replica; then ``train_wm``, ``train_codec`` and ``train_gan`` as a
    user runs them, 2 steps each at their defaults, and ``eval_codec`` on
    the fine-tuned codec;
 14. interpretability: the probe CLI for spread_spectrum and semantic_pca as
@@ -97,18 +107,23 @@ Phases, each printing its seconds:
    score on the main path's batch (each against the plain route's by the
    PGD rule), the saliency spectrogram and its top frames, and the stats
    CLI on phase 8's results.  Every kernel call is held against its plain
-   version on its own inputs; all three kernels must launch.  It prints
-   the seconds of each CLI and saliency call, the uncertainty's host
-   draws, the peak memory of the saliency calls and of ``exp_c``, and the
-   device split of one IG step;
+   version on its own inputs (each draw bit for bit against the replica,
+   the uncertainty's against phase 2's of the same key and shape); all
+   four kernels must launch; with matplotlib the CLIs' PNGs must exist and
+   be non-empty, without it none may, and a line names them.  It prints
+   the seconds of each CLI and saliency call, the device time of each
+   CLI's draws, the peak memory of the saliency calls and of ``exp_c``,
+   and the device split of one IG step;
 15. quality and parallel: ``scipy.signal`` must import (the host metrics
    resample with it); the quality CLI in-process at its defaults
    (``--watermark spread_spectrum`` on 16 speech-like WAVs of 2 s at 16
    kHz, ``--results_dir`` over the artifact tree that ``save_artifacts``
-   writes from phase 8's 16 x 4 s clips, marked and attacked by ``dac``,
-   and ``--summarize_dir``): seconds per run, the host's share (exact STOI
-   and PESQ), the column means, ``pesq_impl``; every metric finite, PESQ
-   within the proxy's range, exact STOI 1.0 on identical pairs.  Then a
+   writes from phase 8's 16 x 4 s clips, marked and attacked by ``dac``
+   (each clip's ``comparison.png`` where matplotlib is present, none
+   without it), and ``--summarize_dir``): seconds per run, the host's
+   share (exact STOI and PESQ), the column means, ``pesq_impl``; every
+   metric finite, PESQ within the proxy's range, exact STOI 1.0 on
+   identical pairs.  Then a
    process group of one over NCCL: ``make_sharded_eval`` on the main
    path's batch equal to the entry's outputs bit for bit, one
    ``make_codec_train_step(..., mesh=)`` step (DDP) at ``train_codec``'s
@@ -163,7 +178,9 @@ from nawc_tpu_torch.models import (  # noqa: E402
 from nawc_tpu_torch.models import spread_spectrum as ss_module  # noqa: E402
 from nawc_tpu_torch.models.spread_spectrum import _NULL_OFFSETS  # noqa: E402
 from nawc_tpu_torch.attacks.pgd import _grad  # noqa: E402
+from nawc_tpu_torch.eval import figures  # noqa: E402
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
+from nawc_tpu_torch.ops import jaxrand as keyed  # noqa: E402
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
 from nawc_tpu_torch.train.adversarial import (  # noqa: E402
     decoder_only_tx, init_discriminators, make_gan_train_step)
@@ -179,10 +196,16 @@ from nawc_tpu_torch.utils.config import CodecConfig, NeuralWMConfig, SpreadSpect
 
 CHECKPOINT = REPO / "checkpoints" / "codec_24k.msgpack"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores, TF32 FLOP/s on the tensor cores
+# outside the tensor cores, TF32 FLOP/s on the tensor cores, fp64 FLOP/s
+# outside the tensor cores; int32 operations/s from the Hopper white paper's
+# SM (64 INT32 lanes) x 132 SMs x the 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_F64_FLOPS = 34e12
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# the kernels of the main path (phase 4); the draw kernel's own path is the sweep (phase 8)
+MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused")
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
@@ -280,7 +303,7 @@ def by_kind(events) -> dict[str, float]:
     for e in events:
         kname = e.key.lower()
         group = ("nawc kernels" if any(k in kname for k in ("sswm_", "nearest_codebook",
-                                                             "rvq_encode"))
+                                                             "rvq_encode", "jaxrand"))
                  else "convolution" if any(k in kname for k in ("conv", "xmma", "implicit_gemm"))
                  else "elementwise" if "elementwise" in kname
                  else "fft" if "fft" in kname
@@ -461,6 +484,152 @@ def check_rvq_fused(dev, quantizer, cases, label: str) -> dict:
     return rec
 
 
+def draw_bound(kind: str, key: np.ndarray, shape: tuple[int, ...], dev) -> tuple[float, str]:
+    """-> (least ms on the card, "bytes" or "operations") for one draw: the
+    output written once against the hash's int32 work, the float64 steps
+    and the float32 ones, each on its own unit (the units run side by
+    side, so the slowest of them bounds the operations).  A normal draw's
+    log1p branch depends on the data: the count is this draw's, from the
+    uniform it transforms (|u|^2 < sqrt(2) - 1 takes the rational branch)."""
+    n = int(np.prod(shape))
+    rational = 0
+    if kind == "normal":
+        u = keyed.uniform(key, shape, dev, keyed._NORMAL_LO, keyed._NORMAL_HI)
+        rational = int(((u * u) < np.float32(0.41421356237309504880)).sum())
+    nb, i32, f64, f32 = keyed.bound_counts(n, kind == "normal", rational)
+    t_bytes = nb / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(i32 / PEAK_INT32_OPS, f64 / PEAK_F64_FLOPS, f32 / PEAK_F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def replica(kind: str, key: np.ndarray, shape, lohi=()) -> np.ndarray:
+    shape = tuple(int(s) for s in shape)
+    return jaxrand.normal(key, shape) if kind == "normal" else jaxrand.uniform(key, shape, *lohi)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_jaxrand(dev) -> dict:
+    """The draw kernel against the numpy replica, bit for bit: the
+    uncertainty run's 20.48 M normals, the sweep's (32, 32000) normal and
+    uniform and vorbis's dither, odd lengths and a flat index past one
+    block, keys from split and fold_in, and the uniform ranges of the
+    attacks (eq's centres, widths and +-depth_db gains, time_jitter's
+    +-1) and of the watermark trainer's scale.  -> the uncertainty shape's
+    record, and the draws held here by (kind, key, shape, range) for
+    phase 14."""
+    k0 = jaxrand.prng_key(0)
+    ks = jaxrand.split(k0, 3)
+    cases = [("normal", jaxrand.prng_key(1), (20, 32, 32_000), ()),  # uncertainty: 20 MC x 32 clips x 2 s
+             ("normal", k0, (32, 32_000), ()),                        # the sweep's noise attacks
+             ("uniform", k0, (32, 32_000), (0.0, 1.0)),
+             ("uniform", k0, (32, 126, 513), (-0.5, 0.5)),           # vorbis's dither
+             ("normal", ks[1], (3, 1001), ()),                        # odd length
+             ("normal", jaxrand.fold_in(k0, 7), (257,), ()),          # one past a block of 256
+             ("normal", k0, (4800,), ()),                             # reverb's IR at 16 kHz
+             ("uniform", ks[0], (5,), (0.05, 0.9)),                   # eq's centres, widths, gains
+             ("uniform", ks[1], (5,), (0.02, 0.15)),
+             ("uniform", ks[2], (5,), (-6.0, 6.0)),
+             ("uniform", jaxrand.fold_in(k0, 3), (32, 32), (-1.0, 1.0)),  # time_jitter
+             ("uniform", ks[2], (16, 1), (0.76, 1.24))]               # the wm trainer's scale
+    rec, held = {}, {}
+    counts = {"normal": 0, "uniform": 0}
+    for kind, key, shape, lohi in cases:
+        fn = getattr(keyed, kind)
+        got = fn(key, shape, dev, *lohi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.from_numpy(replica(kind, key, shape, lohi)).to(dev)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check(got.shape == want.shape and differ == 0,
+              f"jaxrand {kind} {shape} {lohi}: {differ} draws differ from the replica")
+        counts[kind] += got.numel()
+        err = float((got - want).abs().max())
+        ms = device_ms(lambda: fn(key, shape, dev, *lohi))
+        bms, by = draw_bound(kind, key, shape, dev)
+        line = (f"jaxrand {kind} {shape} range {lohi or '(normal)'}: bit for bit the replica; device "
+                f"{ms:.4f} ms, replica on the host {host_ms:.2f} ms, bound {bms:.4f} ms ({by})")
+        if shape == (20, 32, 32_000):
+            randn_ms = device_ms(lambda: torch.randn(shape, device=dev))
+            line += f"; torch.randn of the shape (another generator) {randn_ms:.4f} ms"
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=host_ms, bound_ms=bms, bound_by=by,
+                       library_ms=None)
+            held[(kind, tuple(int(k) for k in key), shape, tuple(lohi))] = got
+        print(line)
+    print(f"jaxrand: {counts['normal']} normals and {counts['uniform']} uniforms bit for bit the replica")
+    check(counts["normal"] >= 10**7, f"jaxrand: fewer than 10^7 normals checked: {counts}")
+    rec["held"] = held
+    return rec
+
+
+class DrawRecorder(contextlib.AbstractContextManager):
+    """Replaces ``keyed.normal`` and ``keyed.uniform`` (the draws of the
+    attacks, the MC noise, the PCA jamming and the trainer) by wrappers
+    that keep each draw's arguments and result and time it on the device
+    with CUDA events."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        self.orig = {k: getattr(keyed, k) for k in ("normal", "uniform")}
+        for kind, fn in self.orig.items():
+            def record(*args, _kind=kind, _fn=fn):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args)
+                end.record()
+                self.calls.append((_kind, args, out, start, end))
+                return out
+
+            setattr(keyed, kind, record)
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in self.orig.items():
+            setattr(keyed, kind, fn)
+
+    def device_ms(self, calls=None) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for *_, s, e in (self.calls if calls is None else calls))
+
+
+def _ident(kind: str, args) -> tuple:
+    key, shape, _, *lohi = args
+    return kind, tuple(int(k) for k in key), tuple(int(s) for s in shape), tuple(lohi)
+
+
+def check_draws(calls, held: dict | None = None) -> dict:
+    """Every recorded draw bit for bit against the numpy replica, or
+    against the draw of the same key, shape and range that phase 2 held
+    against it."""
+    values = 0
+    for kind, args, out, *_ in calls:
+        ident = _ident(kind, args)
+        want = (held or {}).get(ident)
+        if want is None:
+            want = torch.from_numpy(replica(kind, args[0], args[1], args[3:])).to(out.device)
+        check(same_bits(out, want), f"draw {ident[0]} {ident[2]} {ident[3]} differs from the replica")
+        values += out.numel()
+    return dict(draws=len(calls), values=values)
+
+
+def check_draw_pairs(got, want) -> dict:
+    """The draws of a kernel run against those of the same run with the
+    plain versions (the replica), pair by pair: the same keys, shapes and
+    ranges, the same bits."""
+    check(len(got) == len(want), f"{len(got)} draws with the kernel against {len(want)} plain")
+    values = 0
+    for (kg, ag, og, *_), (kw, aw, ow, *_) in zip(got, want):
+        check(_ident(kg, ag) == _ident(kw, aw), f"draw {_ident(kg, ag)} against plain {_ident(kw, aw)}")
+        check(same_bits(og, ow), f"draw {_ident(kg, ag)[::2]} differs from the replica's")
+        values += og.numel()
+    return dict(draws=len(got), values=values)
+
+
 # ------------------------------------------------------------------ phase 8
 
 DISCRETE = ("bitwise/", "hard/", "survived", "detector_works")
@@ -602,7 +771,8 @@ def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: di
     if attack_s is not None:
         attack_s.clear()
     _lib.reset_launches()
-    with Recorder(ss_module, "whiten_correlate") as sw, Recorder(codec_model, "nearest_codebook") as lk:
+    with Recorder(ss_module, "whiten_correlate") as sw, Recorder(codec_model, "nearest_codebook") as lk, \
+            DrawRecorder() as dr:
         t0 = time.perf_counter()
         got = run()
         torch.cuda.synchronize()
@@ -612,7 +782,7 @@ def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: di
         check(launches[n] > 0, f"{label}: kernel {n} was not launched in the sweep")
     kernel_attack_s = dict(attack_s or {})
     t0 = time.perf_counter()
-    with _lib.plain_versions():
+    with _lib.plain_versions(), DrawRecorder() as dp:
         want = run()
         torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
@@ -620,6 +790,7 @@ def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: di
     errors = [r for r in rows + rows_of(want) if "error" in r]
     check(not errors, f"{label}: error rows: {errors[:2]}")
     s, c = check_sswm_calls(sw.calls, z0), check_lookup_calls(lk.calls)
+    draws = check_draw_pairs(dr.calls, dp.calls)
     near = s["near_bits"] + s["near_gates"] + c["near_codes"]
     off = compare_rows(label, rows, rows_of(want), near)
     print(f"sweep {label}: {len(rows)} rows, wall {wall:.2f} s (plain {plain_wall:.2f} s); "
@@ -629,11 +800,14 @@ def sweep_run(label: str, run, z0: float, kernels: tuple[str, ...], attack_s: di
           f"{s['near_gates']}")
     print(f"  nearest_codebook calls by (N, D): {c['shapes']}: {c['near_codes']} of {c['frames']} "
           f"codes differ (near-ties); row cells off plain: {off}")
+    print(f"  jaxrand: {draws['draws']} draws ({draws['values']} values) bit for bit the plain run's, "
+          f"{dr.device_ms():.3f} ms of device time (the plain run's, the replica on the host and its copy, "
+          f"{dp.device_ms():.1f} ms by the same events)")
     if kernel_attack_s:
         slow = sorted(kernel_attack_s.items(), key=lambda kv: -kv[1])[:5]
         print(f"  attacks {sum(kernel_attack_s.values()):.2f} s of the {wall:.2f} s; slowest "
               "(both applications): " + ", ".join(f"{k} {v:.3f} s" for k, v in slow))
-    return dict(rows=rows, plain=rows_of(want), wall=wall, launches=launches)
+    return dict(rows=rows, plain=rows_of(want), wall=wall, launches=launches, draw_ms=dr.device_ms())
 
 
 def mean_of(rows: list[dict], col: str) -> float:
@@ -654,13 +828,11 @@ def sweep(codec, dev, sizes=((16, 4.0), (16, 2.0), (8, 4.0))) -> dict:
     clips16 = speech_clips(n_ss, s_ss, 16_000, seed=10)
     wav16 = np.stack(speech_clips(n_cb, s_cb, 16_000, seed=11))
     clips44 = speech_clips(n_psy, s_psy, 44_100, seed=12)
-    both = ("whiten_correlate", "nearest_codebook")
+    both = ("whiten_correlate", "nearest_codebook", "jaxrand")
     out = {}
-    for label, draw in [("normal", lambda: jaxrand.normal(jaxrand.prng_key(0), (32, 32_000))),
-                        ("uniform", lambda: jaxrand.uniform(jaxrand.prng_key(0), (32, 32_000)))]:
-        t0 = time.perf_counter()
-        draw()
-        print(f"host draw jaxrand.{label} (32, 32000): {1e3 * (time.perf_counter() - t0):.1f} ms")
+    for kind in ("normal", "uniform"):
+        ms = device_ms(lambda: getattr(keyed, kind)(jaxrand.prng_key(0), (32, 32_000), dev))
+        print(f"device draw keyed.{kind} (32, 32000): {ms:.4f} ms")
     out["spread_spectrum"] = sweep_run(
         "spread_spectrum", lambda: run_robustness(ss, timed_suite(suite16, attack_s), clips16,
                                                   16_000, 2.0, device=dev),
@@ -668,7 +840,7 @@ def sweep(codec, dev, sizes=((16, 4.0), (16, 2.0), (8, 4.0))) -> dict:
     out["sync"] = sweep_run(
         "spread_spectrum sync", lambda: run_robustness(ss, suite16, clips16, 16_000, 2.0, sync=True,
                                                        device=dev),
-        ss.presence_z0, ("nearest_codebook",))
+        ss.presence_z0, ("nearest_codebook", "jaxrand"))
     out["combined"] = sweep_run(
         "combined spread_spectrum + chunked",
         lambda: run_combined({"spread_spectrum": ss, "chunked": ChunkedWM()},
@@ -774,14 +946,17 @@ def codec_latent(codec, dev, n_clips: int = 4, seconds: float = 2.0, steps: int 
     suite = build_suite(24_000, codec)
     _lib.reset_launches()
     t0 = time.perf_counter()
-    with Recorder(codec_api, "rvq_encode_fused") as rf, Recorder(codec_model, "nearest_codebook") as lk:
+    with Recorder(codec_api, "rvq_encode_fused") as rf, Recorder(codec_model, "nearest_codebook") as lk, \
+            DrawRecorder() as dr:
         rep = run_combined(timed, suite, wav24, device=dev)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    draws = check_draws(dr.calls)
     print(f"codec-latent run_combined ({n_clips} x {seconds} s, {len(suite)} attacks): wall {wall:.1f} s; "
-          f"launches {launches}")
-    for n in ("rvq_encode_fused", "nearest_codebook"):
+          f"launches {launches}; {draws['draws']} draws bit for bit the replica, {dr.device_ms():.3f} ms "
+          "of device time")
+    for n in ("rvq_encode_fused", "nearest_codebook", "jaxrand"):
         check(launches[n] > 0, f"codec-latent run: kernel {n} was not launched")
     errors = [r for r in rep.per_method + rep.summary if "error" in r]
     check(not errors, f"codec-latent run: error rows: {errors[:2]}")
@@ -915,7 +1090,7 @@ def neural_phase(codec, dev, n_clips: int = 16, seconds: float = 4.0, wm=None) -
     for label, sync in (("neural", False), ("neural sync", True)):
         out[label] = sweep_run(label, lambda: run_robustness(wm, suites[sync], clips, 16_000, 2.0,
                                                              sync=sync, device=dev),
-                               0.0, ("nearest_codebook",), warm=not sync)
+                               0.0, ("nearest_codebook", "jaxrand"), warm=not sync)
         print(f"  {label}: bitwise/clean {mean_of(out[label]['rows'], 'bitwise/clean'):.4f}, "
               f"bitwise/distorted {mean_of(out[label]['rows'], 'bitwise/distorted'):.4f}")
     out["launches"] = {n: out["neural"]["launches"][n] + out["neural sync"]["launches"][n]
@@ -982,7 +1157,7 @@ def wm_trainer(dev, codec, files, steps: int = 24, batch: int = 16, seconds: flo
     t = int(seconds * cfg.sample_rate)
     ms: dict = {"dsp": [], "codec": []}
     metrics, peak = [], 0.0
-    with Recorder(codec_model, "nearest_codebook", clone=True) as lk:
+    with Recorder(codec_model, "nearest_codebook", clone=True) as lk, DrawRecorder() as dr:
         for i in range(1, steps + 1):
             wav = torch.from_numpy(next(batches)[:, :t]).to(dev)
             key, km, kk = jaxrand.split(key, 3)
@@ -995,11 +1170,13 @@ def wm_trainer(dev, codec, files, steps: int = 24, batch: int = 16, seconds: flo
             peak = max(peak, pk)
     split = {b: split_of(lambda s: fns[b](s, wav, msg, kk, i), state) for b in fns}
     lookups = check_lookup_calls(lk.calls)
+    draws = check_draws(dr.calls)
     print_trainer(f"wm trainer {batch} x {seconds} s", ms, peak, split["dsp"], metrics)
     print("  codec-branch step device ms by kind: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(split["codec"].items(), key=lambda kv: -kv[1])))
     print(f"  bit_acc {[round(float(m['bit_acc']), 3) for m in metrics]}; nearest_codebook calls "
-          f"{lookups['shapes']}: {lookups['near_codes']} of {lookups['frames']} differ (near-ties)")
+          f"{lookups['shapes']}: {lookups['near_codes']} of {lookups['frames']} differ (near-ties); "
+          f"{draws['draws']} augmentation draws (kernel and plain steps) bit for bit the replica")
     return dict(ms=ms, peak=peak)
 
 
@@ -1122,7 +1299,8 @@ def training_phase(dev, codec, tree: dict, sizes: dict | None = None,
         cli_runs(Path(d), cli_args or {})
     out["launches"] = {n: k.launches for n, k in _lib.KERNELS.items()}
     print(f"launches in the trainers' kernel steps: {out['launches']}")
-    check(out["launches"]["nearest_codebook"] > 0, "training: nearest_codebook was not launched")
+    for n in ("nearest_codebook", "jaxrand"):
+        check(out["launches"][n] > 0, f"training: {n} was not launched")
     return out
 
 
@@ -1198,18 +1376,19 @@ def saliency_runs(wm, marked: torch.Tensor, msg: torch.Tensor, steps: int = 16) 
 
 def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows: list[dict],
                  n_clips: int = 16, seconds: float = 2.0, semantic_steps: int = MANIFOLD_ADAM_STEPS,
-                 cli_args: tuple[str, ...] = ()) -> dict:
+                 cli_args: tuple[str, ...] = (), held: dict | None = None) -> dict:
     """Phase 14: the probe as ``benchmark --probe`` spawns it, then the
     interpretability CLIs at their defaults on speech-like WAVs written to
     a temporary directory, each PGD mode, the saliency of the main path's
     batch and the stats CLI on phase 8's results; every kernel call held
-    against its plain version.  `cli_args` adds arguments to every CLI (for
-    a rehearsal on the CPU only)."""
+    against its plain version (each draw against the replica, or against
+    phase 2's draw of the same key and shape in `held`), and the CLIs' PNGs
+    drawn where matplotlib is present.  `cli_args` adds arguments to every
+    CLI (for a rehearsal on the CPU only)."""
     from nawc_tpu_torch.cli import ablation, manifold, perturbation, pgd, stats, uncertainty
     from nawc_tpu_torch.cli.common import preflight_probe
     from nawc_tpu_torch.eval import read_csv, write_results_csv
     from nawc_tpu_torch.models import semantic
-    from nawc_tpu_torch.utils import jaxrand as jaxrand_module
 
     out: dict = {"s": {}}
     with tempfile.TemporaryDirectory() as d:
@@ -1228,42 +1407,34 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
                 ("ablation", ablation, ["--watermarks", "spread_spectrum", "chunked"]),
                 ("manifold", manifold, ["--watermarks", "spread_spectrum", "semantic_pca"])]
         runs += [(f"pgd {m}", pgd, ["--mode", m]) for m in pgd.MODES]
-        draw_s = [0.0]
-        normal = jaxrand_module.normal
-
-        def timed_normal(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return normal(*a, **k)
-            finally:
-                draw_s[0] += time.perf_counter() - t0
-
+        draw_ms: dict = {}
         _lib.reset_launches()
         with Recorder(ss_module, "whiten_correlate", clone=True) as sw, \
                 Recorder(codec_model, "nearest_codebook") as lk, \
-                Recorder(codec_api, "rvq_encode_fused") as rf:
+                Recorder(codec_api, "rvq_encode_fused") as rf, DrawRecorder() as dr:
             for label, mod, argv in runs:
                 argv = argv + extra + ["--out_dir", str(d / label.replace(" ", "_"))]
+                n_draws = len(dr.calls)
                 with contextlib.ExitStack() as stack:
                     if label == "manifold":
                         cfgs = dict(semantic._DEFAULT_CFGS)
                         semantic._DEFAULT_CFGS["pca"] = dataclasses.replace(cfgs["pca"], steps=semantic_steps)
                         stack.callback(semantic._DEFAULT_CFGS.update, cfgs)
-                    if label == "uncertainty":
-                        jaxrand_module.normal = timed_normal
-                        stack.callback(setattr, jaxrand_module, "normal", normal)
                     torch.cuda.reset_peak_memory_stats()
                     _, ms = synced_ms(lambda: mod.main(argv))
                     out["s"][label] = ms / 1e3
                     if label == "pgd exp_c":
                         out["exp_c peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+                if len(dr.calls) > n_draws:
+                    draw_ms[label] = dr.device_ms(dr.calls[n_draws:])
             out["saliency"] = saliency_runs(wm, marked, msg)
             torch.cuda.synchronize()
         launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+        draws = check_draws(dr.calls, held)
         _, ms = synced_ms(lambda: stats.main(["--results", str(d / "test_results.csv"),
                                               "--out_dir", str(d / "stats")]))
         out["s"]["stats"] = ms / 1e3
-        out["uncertainty draw s"] = draw_s[0]
+        out["draw ms"] = draw_ms
 
         tables = {name: read_csv(d / sub / name) for sub, name in [
             ("perturbation", "perturbation_analysis.csv"), ("uncertainty", "uncertainty_results.csv"),
@@ -1272,6 +1443,7 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
             ("pgd_exp_a", "exp_a_metrics.csv"), ("pgd_exp_b", "exp_b_reconstruction.csv"),
             ("pgd_exp_c", "exp_c_comparison.csv"), ("pgd_interp", "pgd_interpretability.csv"),
             ("stats", "feature_importance.csv"), ("stats", "stats_by_group.csv")]}
+        check_figures(interp_pngs(d, len({r["clip"] for r in tables["manifold_analysis.csv"]})), d)
     for name, rows in tables.items():
         vals = [v for r in rows for v in r.values() if isinstance(v, float)]
         check(len(rows) > 0 and all(np.isfinite(vals)), f"{name}: empty or not finite")
@@ -1296,7 +1468,8 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
     for n in _lib.KERNELS:
         check(launches[n] > 0, f"interp: kernel {n} was not launched")
     print("interp seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in out["s"].items())
-          + f"; uncertainty's host draws {out['uncertainty draw s']:.2f} s; peak memory of exp_c "
+          + "; device draws " + ", ".join(f"{k} {v:.3f} ms" for k, v in draw_ms.items())
+          + f" ({draws['draws']} draws bit for bit the replica); peak memory of exp_c "
           f"{out['exp_c peak GiB']:.2f} GiB")
     print(f"uncertainty accuracy {acc:.4f}; pgd score {mean_of(att, 'score_before'):.4f} -> "
           f"{mean_of(att, 'score_after'):.4f}; manifold delta_att (spread_spectrum) "
@@ -1304,6 +1477,36 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
               f"{b['attack']} {b['score']:.3f}" for b in tables["attack_baselines.csv"]))
     out["launches"] = launches
     return out
+
+
+def interp_pngs(d: Path, n8: int) -> list[Path]:
+    """The PNGs phase 14's CLIs draw: the JAX CLIs' sets, the manifold's
+    per-clip triplets for its `n8` clips of each of its two watermarks."""
+    names = {"perturbation": ["snr_histogram.png", "spectral_footprint.png"],
+             "uncertainty": ["variance_boxplots.png", "mc_var_prob_correct_vs_wrong_hist.png",
+                             "mc_var_prob_roc.png", "reliability_curve_mc_mean_prob.png"],
+             "ablation": ["ablation_heatmap.png", "snac_layer_ablation_chunked.png",
+                          "snac_layer_ablation_spread_spectrum.png"],
+             "manifold": [f"manifold_global_{k}_all.png" for k in ("delta", "3d", "delta_bar")]
+             + [f"plots/{w}/clip_{i}_proj_{w}.png" for w in ("spread_spectrum", "semantic_pca")
+                for i in range(n8)],
+             "pgd_baselines": ["benchmark_chart.png"], "pgd_exp_c": ["experiment_c_results.png"],
+             "stats": ["feature_importance.png"]}
+    return [d / sub / n for sub, ns in names.items() for n in ns]
+
+
+def check_figures(paths: list[Path], root: Path) -> None:
+    """With matplotlib, every PNG exists and is not empty; without it, none
+    was written, and the line names them (relative to `root`)."""
+    if figures.available():
+        bad = [str(p) for p in paths if not (p.exists() and p.stat().st_size > 0)]
+        check(not bad, f"PNGs missing or empty: {bad}")
+        print(f"figures: {len(paths)} PNGs drawn, none empty")
+    else:
+        drawn = [str(p) for p in paths if p.exists()]
+        check(not drawn, f"PNGs written without matplotlib: {drawn}")
+        print(f"figures: matplotlib is not installed; {len(paths)} PNGs not drawn: "
+              + ", ".join(str(p.relative_to(root)) for p in paths))
 
 
 # ------------------------------------------------------------------ phase 15
@@ -1344,6 +1547,7 @@ def quality_runs(codec, dev, clean16: np.ndarray, d: Path, cli_args: tuple[str, 
     for i in range(x.shape[0]):
         save_artifacts(d / "artifacts", f"spread_spectrum_{i}", *(
             v[i].cpu().numpy() for v in (x, marked, attacked)), 16_000)
+    check_figures([d / "artifacts" / f"spread_spectrum_{i}" / "comparison.png" for i in range(x.shape[0])], d)
 
     host = {"stoi": 0.0, "pesq": 0.0}
     stoi_batch, pesq_host = stoi_exact.stoi_exact_batch, quality.pesq_host
@@ -1539,6 +1743,7 @@ def main() -> int:
         smi = nvidia_smi_line()
         print(f"device {device_name!r}, count {count}; nvidia-smi: {smi}")
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+        print(f"matplotlib present: {figures.available()} (the CLIs' PNGs are drawn only with it)")
 
     with phase("1 build"):
         path, log = _lib.build()
@@ -1555,6 +1760,7 @@ def main() -> int:
             "rvq_encode_fused": check_rvq_fused(
                 dev, random_quantizer(CodecConfig(), dev, 3), [(BATCH, 192), (3, 100), (BATCH, 188)],
                 "random tables"),
+            "jaxrand": check_jaxrand(dev),
         }
 
     with phase("3 weights"):
@@ -1575,8 +1781,8 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = {n: k.launches for n, k in _lib.KERNELS.items()}
         print(f"launches on the main path: {launches}")
-        for n, c in launches.items():
-            check(c > 0, f"kernel {n} was not launched on the main path")
+        for n in MAIN_KERNELS:
+            check(launches[n] > 0, f"kernel {n} was not launched on the main path")
 
         _, wm = flagship(codec, dev)  # the watermarker `fn` runs
         with _lib.plain_versions():
@@ -1658,7 +1864,9 @@ def main() -> int:
                                  ("spread_spectrum", "sync", "combined", "psychoacoustic"))
                           for n in _lib.KERNELS}
         sweep_launches["whiten_correlate"] += swept["discovery launches"]
-        print(f"launches in the sweep's kernel runs: {sweep_launches}")
+        print(f"launches in the sweep's kernel runs: {sweep_launches}; their draws "
+              f"{sum(swept[k]['draw_ms'] for k in ('spread_spectrum', 'sync', 'combined', 'psychoacoustic')):.3f}"
+              " ms of device time")
         x16 = speech_clips(16, 4.0, 16_000, seed=10)
         ss = SpreadSpectrumWM(SpreadSpectrumConfig(alpha=0.1))
         suite16 = build_suite(16_000, codec)
@@ -1710,21 +1918,29 @@ def main() -> int:
         train = training_phase(dev, codec, load_params(CHECKPOINT))
 
     with phase("14 interpretability"):
-        interp = interp_phase(dev, wm, marked, msg, swept["spread_spectrum"]["rows"])
+        interp = interp_phase(dev, wm, marked, msg, swept["spread_spectrum"]["rows"],
+                              held=rec["jaxrand"]["held"])
 
     with phase("15 quality and parallel"):
         qp = quality_parallel_phase(dev, codec, wm, wav, msg, (marked, presence, bits), np.stack(x16))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    # the draw kernel replaces XLA's fusion of jax.random (threefry, erf_inv) in
+    # the JAX package's noise draws, not a Pallas kernel
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
-             "rvq_encode_fused": ("rvq_fused.cu", "nawc_tpu/ops/rvq_fused.py:107")}
+             "rvq_encode_fused": ("rvq_fused.cu", "nawc_tpu/ops/rvq_fused.py:107"),
+             "jaxrand": ("jaxrand.cu", "nawc_tpu/interp/uncertainty.py:28")}
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]
+        main_path = n in MAIN_KERNELS
         kernels.append({
             "name": n, "route": "cuda", "source": f"nawc_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            "replaces": replaces,
+            "launches": launches[n] if main_path else sweep_launches[n],
+            "launches_on": "main path (phase 4)" if main_path else "sweep (phase 8)",
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "sweep_launches": sweep_launches[n],

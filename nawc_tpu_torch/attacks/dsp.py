@@ -6,12 +6,14 @@ mp3/aac/vorbis *surrogates* (band limit + masked spectral quantization,
 flagged as behavioural stand-ins, not bit-exact codecs).  ``encodec`` and
 ``dac`` are the neural-codec round-trips of :mod:`.codec`.
 
-The keyed attacks take a :mod:`..utils.jaxrand` key and draw on the host
-what ``jax.random`` draws for the same key.  The JAX package's workarounds
-are kept where they change the numbers: ``phase_shift`` zero-pads its FFT to
-a power of two, ``time_stretch`` computes its positions in float64 on the
-host, ``time_jitter`` clamps its integer index, ``aac`` delays by 30 ms and
-``vorbis`` dithers subtractively with the default key ``PRNGKey(0)``.
+The keyed attacks take a :mod:`..utils.jaxrand` key and draw what
+``jax.random`` draws for the same key, on the waveform's device
+(:mod:`..ops.jaxrand`: the draw kernel on the card).  The JAX package's
+workarounds are kept where they change the numbers: ``phase_shift``
+zero-pads its FFT to a power of two, ``time_stretch`` computes its
+positions in float64 on the host, ``time_jitter`` clamps its integer index,
+``aac`` delays by 30 ms and ``vorbis`` dithers subtractively with the
+default key ``PRNGKey(0)``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dsp.stft import istft, stft
+from ..ops import jaxrand as keyed
 from ..utils import jaxrand
 from ..utils.config import StftConfig
 from ..utils.padding import fix_length
@@ -60,11 +63,6 @@ def _sinc(wav: torch.Tensor, cutoff: float, sr: int, high: bool = False) -> torc
     return _fir_filter(wav, torch.from_numpy(_sinc_kernel(cutoff, sr, high=high)).to(wav.device))
 
 
-def _draw(draw, key: np.ndarray, shape: tuple[int, ...], device, *args) -> torch.Tensor:
-    """A ``jaxrand`` draw made on the host and moved to `device`."""
-    return torch.from_numpy(draw(key, tuple(shape), *args)).to(device)
-
-
 def _frame_rms_db(wav: torch.Tensor, frame: int = 256) -> torch.Tensor:
     """(B, T) -> (B, T // frame) per-frame RMS in dBFS."""
     t = wav.shape[-1] - wav.shape[-1] % frame
@@ -94,12 +92,12 @@ def polarity(wav: torch.Tensor) -> torch.Tensor:
 def gaussian_noise(wav: torch.Tensor, key: np.ndarray, snr_db: float = 40.0) -> torch.Tensor:
     p_sig = (wav**2).mean(dim=-1, keepdim=True)
     sigma = torch.sqrt(p_sig * 10.0 ** (-snr_db / 10.0))
-    return wav + sigma * _draw(jaxrand.normal, key, wav.shape, wav.device)
+    return wav + sigma * keyed.normal(key, wav.shape, wav.device)
 
 
 def background_noise(wav: torch.Tensor, key: np.ndarray, snr_db: float = 25.0) -> torch.Tensor:
     """Coloured (low-passed at 2 kHz) noise at the given SNR."""
-    n = _sinc(_draw(jaxrand.normal, key, wav.shape, wav.device), 2000.0, 16_000)
+    n = _sinc(keyed.normal(key, wav.shape, wav.device), 2000.0, 16_000)
     p_sig = (wav**2).mean(dim=-1, keepdim=True)
     p_n = (n**2).mean(dim=-1, keepdim=True)
     return wav + n * torch.sqrt(p_sig / (p_n + 1e-12) * 10.0 ** (-snr_db / 10.0))
@@ -120,9 +118,9 @@ def eq(wav: torch.Tensor, key: np.ndarray, sr: int = 16_000, n_bumps: int = 5,
     dev = wav.device
     freqs = torch.from_numpy(np.linspace(0.0, 1.0, taps // 2 + 1).astype(np.float32)).to(dev)
     k1, k2, k3 = jaxrand.split(key, 3)
-    centers = _draw(jaxrand.uniform, k1, (n_bumps,), dev, 0.05, 0.9)
-    widths = _draw(jaxrand.uniform, k2, (n_bumps,), dev, 0.02, 0.15)
-    gains = _draw(jaxrand.uniform, k3, (n_bumps,), dev, -depth_db, depth_db)
+    centers = keyed.uniform(k1, (n_bumps,), dev, 0.05, 0.9)
+    widths = keyed.uniform(k2, (n_bumps,), dev, 0.02, 0.15)
+    gains = keyed.uniform(k3, (n_bumps,), dev, -depth_db, depth_db)
     bumps = torch.exp(-0.5 * ((freqs[None, :] - centers[:, None]) / widths[:, None]) ** 2)
     mag = 10.0 ** ((gains[:, None] * bumps).sum(dim=0) / 20.0)
     h = torch.fft.irfft(mag.to(torch.complex64), n=taps)
@@ -178,7 +176,7 @@ def time_jitter(wav: torch.Tensor, key: np.ndarray, max_ms: float = 2.0,
     ``linear`` mode without ``align_corners``."""
     t = wav.shape[-1]
     lead = wav.shape[:-1]
-    ctrl = _draw(jaxrand.uniform, key, lead + (32,), wav.device, -1.0, 1.0)
+    ctrl = keyed.uniform(key, lead + (32,), wav.device, -1.0, 1.0)
     offs = F.interpolate(ctrl.reshape(-1, 1, 32), size=t, mode="linear", align_corners=False)
     offs = offs.reshape(lead + (t,)) * (max_ms / 1000.0 * sr)
     pos = torch.clamp(torch.arange(t, dtype=wav.dtype, device=wav.device) + offs, 0.0, t - 1.001)
@@ -214,7 +212,7 @@ def reverb(wav: torch.Tensor, key: np.ndarray, rt60_ms: float = 300.0, sr: int =
     n_ir = int(sr * rt60_ms / 1000.0)
     tau = rt60_ms / 1000.0 / 6.9  # RT60 = the time to -60 dB
     tt = torch.arange(n_ir, device=wav.device) / sr
-    ir = _draw(jaxrand.normal, key, (n_ir,), wav.device) * torch.exp(-tt / tau)
+    ir = keyed.normal(key, (n_ir,), wav.device) * torch.exp(-tt / tau)
     ir = ir / (torch.linalg.vector_norm(ir) + 1e-9)
     n = wav.shape[-1] + n_ir - 1
     nfft = 1 << int(np.ceil(np.log2(max(n, 2))))
@@ -244,7 +242,7 @@ def _surrogate_spectrum(
     if dither is None:
         q = torch.round(logmag / step) * step
     else:
-        u = _draw(jaxrand.uniform, dither, logmag.shape, wav.device, -0.5, 0.5)
+        u = keyed.uniform(dither, logmag.shape, wav.device, -0.5, 0.5)
         q = (torch.round(logmag / step + u) - u) * step
     keep = (logmag > logmag.amax(dim=-1, keepdim=True) - 40.0).to(mag.dtype)
     return 10.0 ** (q / 20.0) * keep * band, phase

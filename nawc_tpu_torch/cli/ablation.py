@@ -5,9 +5,10 @@ Usage (add --device cpu to run on the CPU):
   python -m nawc_tpu_torch.cli.ablation --watermarks spread_spectrum --filecount 8
 
 It writes ``layer_ablation.csv`` under ``--out_dir``, with the JAX CLI's
-columns, and prints the (mask x watermark) table of mean scores.  The
-heatmap and per-watermark bar PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A15).
+columns, prints the (mask x watermark) table of mean scores, and draws
+``ablation_heatmap.png`` and ``snac_layer_ablation_<wm>.png``.
+Without matplotlib it writes the CSVs and prints one line naming the
+PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from ..eval import figures
+    from ..eval.reporting import plot_ablation_heatmap
     from ..eval.robustness import write_csv
     from ..interp import ablation_heatmap, run_layer_ablation
     from ..models import at_rate
@@ -52,6 +55,13 @@ def main(argv=None) -> None:
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     write_csv(rows, out / "layer_ablation.csv")
+    pngs = [out / "ablation_heatmap.png", *(out / f"snac_layer_ablation_{w}.png" for w in sorted(wms))]
+    if figures.available():
+        plot_ablation_heatmap(rows, pngs[0])
+        for p in figures.plot_ablation_per_wm_bars(rows, out):
+            print(f"saved {p}")
+    else:
+        figures.not_drawn(pngs)
     print(format_table(ablation_heatmap(rows), "mask", tuple(sorted(wms)), digits=6))
 
 

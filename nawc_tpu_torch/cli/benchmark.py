@@ -15,9 +15,10 @@ columns.  Each method runs at its native rate: the clips, loaded at
 codec's 24 kHz), and so is the attack suite.  It exits with code 2 when
 every row of a method is an ERROR row.  With ``--probe`` each watermark
 first runs ``cli.probe`` in a disposable subprocess, on the run's clips
-(the first dataset's with ``--datasets``).  Left out against the JAX CLI:
-the survival bar chart and the artifacts' comparison PNG (the port does not
-use matplotlib).
+(the first dataset's with ``--datasets``).  --mode benchmark draws
+``survival_rates.png``; ``--artifacts`` writes each clip's WAVs and
+``comparison.png``.  Without matplotlib it writes the CSVs and WAVs and
+prints one line naming the PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -87,8 +88,8 @@ def main(argv=None) -> None:
 
     from ..attacks import build_suite
     from ..dsp.resample import resample
-    from ..eval import run_combined, run_detector_checker, run_survivability, write_csv
-    from ..eval.reporting import save_artifacts
+    from ..eval import figures, run_combined, run_detector_checker, run_survivability, write_csv
+    from ..eval.reporting import plot_survival_bars, save_artifacts
     from ..models.base import random_message
     from ..utils import jaxrand
     from ..utils.device import float32_parity, resolve_device
@@ -150,6 +151,10 @@ def main(argv=None) -> None:
         rows = [r for rate, g in groups.items()
                 for r in run_survivability(g, suite_at(rate), wav_at[rate], seed=args.seed, device=dev)]
         write_csv(rows, out / "qwen_benchmark_results.csv")
+        if figures.available():
+            plot_survival_bars(rows, out / "survival_rates.png")
+        else:
+            figures.not_drawn([out / "survival_rates.png"])
         ok = [r for r in rows if r["clip_index"] >= 0]
         for (name, attack), v in _mean_by(ok, ("watermark", "attack"), "survived").items():
             print(f"{name} {attack}: survived {v:.4f}")
@@ -180,9 +185,12 @@ def main(argv=None) -> None:
             else:
                 marked = wm.embed(wav_a)
             attacked = attack(marked, key)
-        for i in range(min(args.artifacts, wav_a.shape[0])):
+        n_art = min(args.artifacts, wav_a.shape[0])
+        for i in range(n_art):
             save_artifacts(out / "artifacts", f"{name}_{i}", *(
                 x[i].cpu().numpy() for x in (wav_a, marked, attacked)), wm.sample_rate)
+        if not figures.available():
+            figures.not_drawn([out / "artifacts" / f"{name}_{i}" / "comparison.png" for i in range(n_art)])
 
 
 if __name__ == "__main__":

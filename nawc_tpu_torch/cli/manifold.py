@@ -7,9 +7,10 @@ Usage (add --device cpu to run on the CPU):
       --filecount 8 --out_dir results/manifold
 
 It writes ``manifold_analysis.csv`` under ``--out_dir``, with the JAX CLI's
-columns, and prints the per-watermark means.  The per-clip triplet plots
-and the global manifold PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A15).
+columns, prints the per-watermark means, and draws the per-clip triplet
+plots under ``plots/<wm>/`` and the three ``manifold_global_*_all.png``.
+Without matplotlib it writes the CSVs and prints one line naming the
+PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from ..attacks import codec_roundtrip
+    from ..eval import figures
     from ..eval.robustness import write_csv
     from ..interp import agg_stats, run_manifold_analysis
+    from ..interp.manifold import triplet_paths
     from ..models import at_rate
     from ..utils.device import float32_parity, resolve_device
     from .robustness import format_table
@@ -52,8 +55,16 @@ def main(argv=None) -> None:
 
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    rows = run_manifold_analysis(codec, wms, wav, lambda w: codec_roundtrip(codec, w))
+    draw = figures.available()
+    rows = run_manifold_analysis(codec, wms, wav, lambda w: codec_roundtrip(codec, w),
+                                 triplet_dir=out / "plots" if draw else None)
     write_csv(rows, out / "manifold_analysis.csv")
+    if draw:
+        for p in figures.plot_manifold_global(rows, out):
+            print(f"saved {p}")
+    else:
+        figures.not_drawn([p for n in wms for p in triplet_paths(out / "plots", n, wav.shape[0])]
+                          + figures.manifold_global_paths(out))
     means = agg_stats([{k: r[k] for k in ("watermark",) + _PRINTED} for r in rows], ["watermark"])
     print(format_table(means, "watermark", tuple(f"{c}_mean" for c in _PRINTED), digits=6))
 

@@ -5,8 +5,9 @@ Usage (add --device cpu to run on the CPU):
   python -m nawc_tpu_torch.cli.perturbation --watermark spread_spectrum --filecount 16
 
 It writes ``perturbation_analysis.csv`` under ``--out_dir``, with the JAX
-CLI's columns.  The SNR histogram and footprint PNGs are not drawn: the
-port does not use matplotlib (ROADMAP.md A15).
+CLI's columns, and draws ``snr_histogram.png`` and
+``spectral_footprint.png``.  Without matplotlib it writes the CSV and
+prints one line naming the PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def main(argv=None) -> None:
 
     import torch
 
+    from ..eval import figures
     from ..eval.robustness import write_csv
     from ..interp import residual_report
     from ..models.base import embed_payload
@@ -56,6 +58,12 @@ def main(argv=None) -> None:
     write_csv([{"clip": i, "snr_db": rep["snr_db"][i],
                 **{f"band_{j}_energy": band[i, j] for j in range(band.shape[1])}}
                for i in range(wav.shape[0])], out / "perturbation_analysis.csv")
+    pngs = [out / "snr_histogram.png", out / "spectral_footprint.png"]
+    if figures.available():
+        figures.plot_snr_histogram(rep["snr_db"], pngs[0])
+        figures.plot_spectral_footprint(band, pngs[1])
+    else:
+        figures.not_drawn(pngs)
     print(f"snr_db mean={rep['snr_db'].mean():.2f} -> {out}")
 
 

@@ -12,8 +12,9 @@ Usage (add --device cpu to run on the CPU):
   python -m nawc_tpu_torch.cli.pgd --mode exp_b --filecount 8
 
 Each mode writes the JAX CLI's CSVs, with its columns, under ``--out_dir``.
-The baselines' and exp_c's PNGs are not drawn: the port does not use
-matplotlib (ROADMAP.md A15).  The PCA is fitted on the device, so its
+baselines draws ``benchmark_chart.png`` and exp_c
+``experiment_c_results.png``; without matplotlib a mode prints one line
+naming the PNG it did not draw.  The PCA is fitted on the device, so its
 components' signs are cuSOLVER's on the card (ROADMAP.md C).
 """
 
@@ -50,6 +51,7 @@ def main(argv=None) -> None:
     import torch
 
     from ..attacks import latent_transform_attack, pgd_attack, subspace_pgd_attack
+    from ..eval import figures
     from ..eval.metrics import si_snr
     from ..eval.robustness import write_csv
     from ..interp import agg_stats, get_latent
@@ -63,6 +65,7 @@ def main(argv=None) -> None:
         rounding_fn,
     )
     from ..models.base import embed_payload
+    from ..ops import jaxrand as keyed
     from ..utils import jaxrand
     from ..utils.device import float32_parity, resolve_device
     from .robustness import format_table
@@ -109,7 +112,7 @@ def main(argv=None) -> None:
 
     elif args.mode == "baselines":
         mean, comps, _ = pca()
-        noise = torch.from_numpy(jaxrand.normal(key, tuple(marked.shape))).to(dev)
+        noise = keyed.normal(key, marked.shape, dev)
         attacks = {
             "clean": lambda w: w,
             "gaussian_noise": lambda w: w + 0.003 * noise,
@@ -124,6 +127,12 @@ def main(argv=None) -> None:
                 rows.append({"attack": name, "score": float(host(score_fn(att)).mean()),
                              "snr_db": float(host(si_snr(marked, att)).mean())})
         write_csv(rows, out / "attack_baselines.csv")
+        if figures.available():
+            figures.plot_detection_vs_snr(
+                rows, out / "benchmark_chart.png",
+                title=f"Comparison: Subspace Attacks vs Baselines (K={args.head_k})")
+        else:
+            figures.not_drawn([out / "benchmark_chart.png"])
         print(format_table(rows, "attack", ("score", "snr_db"), digits=6))
 
     elif args.mode == "exp_a":
@@ -146,13 +155,16 @@ def main(argv=None) -> None:
         std = pgd_attack(score_fn, marked, steps=args.steps, eps=args.eps, lr=args.lr)
         sub = subspace_pgd_attack(score_fn, latent_fn, marked, comps[: args.head_k],
                                   steps=args.steps, eps=args.eps, lr=args.lr)
-        rows = []
         with torch.no_grad():
-            for method, att in (("standard_pgd", std), ("subspace_pgd", sub)):
-                s, p = host(si_snr(marked, att)), host(score_fn(att))
-                rows += [{"method": method, "clip": i, "snr_db": float(s[i]), "score": float(p[i])}
-                         for i in range(len(s))]
+            per_clip = {method: (host(si_snr(marked, att)), host(score_fn(att)))
+                        for method, att in (("standard_pgd", std), ("subspace_pgd", sub))}
+        rows = [{"method": method, "clip": i, "snr_db": float(s[i]), "score": float(p[i])}
+                for method, (s, p) in per_clip.items() for i in range(len(s))]
         write_csv(rows, out / "exp_c_comparison.csv")
+        if figures.available():
+            figures.plot_pgd_scatter(per_clip, out / "experiment_c_results.png")
+        else:
+            figures.not_drawn([out / "experiment_c_results.png"])
         means = agg_stats([{k: r[k] for k in ("method", "score", "snr_db")} for r in rows], ["method"])
         print(format_table(means, "method", ("score_mean", "snr_db_mean"), digits=6))
 

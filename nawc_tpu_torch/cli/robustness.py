@@ -6,9 +6,10 @@ Usage (add --device cpu to run on the CPU):
       --audio_glob 'data/LibriSpeech/*.wav' --filecount 16 --out_dir results/robustness
 
 It writes ``shards/<attack>.csv``, ``test_results.csv`` (pipe-delimited),
-``overall_stats.csv`` and ``stats_by_attack.csv`` under ``--out_dir``.  The
-JAX CLI's box plot of SI-SNR by attack is not drawn: the port does not use
-matplotlib (ROADMAP.md A15).
+``overall_stats.csv`` and ``stats_by_attack.csv`` under ``--out_dir``, and
+draws the box plot of SI-SNR by attack, ``sisnr_by_attack.png``.
+Without matplotlib it writes the CSVs and prints one line naming the
+PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from ..attacks import build_suite
-    from ..eval import overall_stats, read_csv, run_robustness, stats_by_attack, write_csv, write_results_csv
+    from ..eval import (figures, overall_stats, read_csv, run_robustness, stats_by_attack, write_csv,
+                        write_results_csv)
+    from ..eval.reporting import plot_metric_boxplots
 
     codec = load_codec(args.codec_ckpt, args.codec_size, device=args.device)
     clips = load_audio_clips(args.audio_glob, args.filecount, args.sample_rate, args.seconds)
@@ -88,6 +91,10 @@ def main(argv=None) -> None:
     write_csv(overall_stats(rows), out / "overall_stats.csv")
     by_attack = stats_by_attack(rows)
     write_csv(by_attack, out / "stats_by_attack.csv")
+    if figures.available():
+        plot_metric_boxplots(rows, out / "sisnr_by_attack.png", metric_col="sisnr_attack")
+    else:
+        figures.not_drawn([out / "sisnr_by_attack.png"])
     print(format_table(by_attack, "attack_type", _TABLE_COLS))
 
 

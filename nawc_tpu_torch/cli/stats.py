@@ -8,8 +8,9 @@ Usage:
 
 It writes ``stats_by_group.csv``, ``overall_stats.csv`` and, when the
 target is a column, ``feature_importance.csv`` under ``--out_dir``, with the
-JAX CLI's columns.  The top-K bar plot is not drawn: the port does not use
-matplotlib (ROADMAP.md A15).  It runs on the host only.
+JAX CLI's columns, with the top-K bar plot ``feature_importance.png``.
+Without matplotlib it writes the CSVs and prints one line naming the
+PNG it did not draw.  It runs on the host only.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out_dir", default="results/stats")
     args = ap.parse_args(argv)
 
+    from ..eval import figures
     from ..eval.robustness import write_csv
     from ..interp import agg_stats, compute_feature_importance
     from ..interp.feature_importance import columns
@@ -92,6 +94,10 @@ def main(argv=None) -> None:
     if args.target in columns(rows):
         imp = compute_feature_importance(rows, args.target)
         write_csv(imp, out / "feature_importance.csv")
+        if figures.available():
+            figures.plot_feature_importance(imp, out / "feature_importance.png", args.target, args.top_k)
+        else:
+            figures.not_drawn([out / "feature_importance.png"])
         print(format_table(imp[: args.top_k], "feature", ("pearson", "spearman", "abs_pearson"), digits=6))
     else:
         print(f"[stats] target {args.target!r} not in columns; wrote group stats only")

@@ -7,9 +7,10 @@ Usage (add --device cpu to run on the CPU):
 
 It writes ``uncertainty_results.csv`` and ``reliability_curve.csv`` under
 ``--out_dir``, with the JAX CLI's columns, and prints the accuracy, the
-variance-error AUC and the ECE.  The box plots, histogram, ROC and
-reliability PNGs are not drawn: the port does not use matplotlib
-(ROADMAP.md A15).
+variance-error AUC and the ECE.  It draws the variance box plots, the
+correct-vs-wrong histogram, the ROC and the reliability curve.
+Without matplotlib it writes the CSVs and prints one line naming the
+PNGs it did not draw.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ def main(argv=None) -> None:
     import numpy as np
     import torch
 
+    from ..eval import figures
+    from ..eval.reporting import plot_variance_boxplots
     from ..eval.robustness import write_csv
     from ..interp import expected_calibration_error, mc_statistics, reliability_curve, variance_error_auc
     from ..models.base import embed_payload
@@ -61,13 +64,23 @@ def main(argv=None) -> None:
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     cols = {**stats, "label": labels}
-    write_csv([{k: v[i] for k, v in cols.items()} for i in range(len(labels))],
-              out / "uncertainty_results.csv")
+    rows = [{k: v[i] for k, v in cols.items()} for i in range(len(labels))]
+    write_csv(rows, out / "uncertainty_results.csv")
     auc = variance_error_auc(stats["mc_var_prob"], stats["correct"])
     ece = expected_calibration_error(stats["mc_mean_prob"], labels)
     c, a, n = reliability_curve(stats["mc_mean_prob"], labels)
     write_csv([{"prob_bin": c[i], "accuracy": a[i], "count": n[i]} for i in range(len(c))],
               out / "reliability_curve.csv")
+    pngs = [out / name for name in ("variance_boxplots.png", "mc_var_prob_correct_vs_wrong_hist.png",
+                                    "mc_var_prob_roc.png", "reliability_curve_mc_mean_prob.png")]
+    if figures.available():
+        grouped = [{**r, "group": "marked" if r["label"] == 1 else "clean"} for r in rows]
+        plot_variance_boxplots(grouped, pngs[0], group_col="group")
+        figures.plot_uncertainty_hist(grouped, pngs[1])
+        figures.plot_uncertainty_roc(grouped, pngs[2])
+        figures.plot_reliability_curve(c, a, pngs[3])
+    else:
+        figures.not_drawn(pngs)
     print(f"accuracy={stats['correct'].mean():.3f} var_error_auc={auc:.3f} ece={ece:.3f}")
 
 

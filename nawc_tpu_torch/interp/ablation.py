@@ -8,11 +8,11 @@ Tables are lists of row dicts (the JAX package returns DataFrames).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..attacks.codec import ablation_masks, layer_ablation
 from ..codec.api import CodecState
+from ..eval.figures import pivot_mean
 from ..models.base import embed_payload, score_payload
 from ..utils import jaxrand
 
@@ -42,10 +42,5 @@ def ablation_heatmap(rows: list[dict]) -> list[dict]:
     """The (mask x watermark) pivot of mean scores, as pandas'
     ``pivot_table(index="mask", columns="watermark", aggfunc="mean")``:
     one row per mask, masks and watermarks in sorted order."""
-    cells: dict[tuple, list[float]] = {}
-    for r in rows:
-        cells.setdefault((r["mask"], r["watermark"]), []).append(r["score"])
-    wms = sorted({w for _, w in cells})
-    return [{"mask": m, **{w: float(np.mean(cells[m, w])) if (m, w) in cells else float("nan")
-                           for w in wms}}
-            for m in sorted({m for m, _ in cells})]
+    masks, wms, means = pivot_mean(rows, "mask", "watermark", "score")
+    return [{"mask": m, **{w: float(means[i, j]) for j, w in enumerate(wms)}} for i, m in enumerate(masks)]

@@ -20,7 +20,7 @@ import torch
 from ..attacks.codec import latent_transform_attack
 from ..models.base import score_payload
 from ..eval.metrics import si_snr
-from ..utils import jaxrand
+from ..ops import jaxrand as keyed
 
 
 def fit_pca(latents: torch.Tensor, n_components: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -62,7 +62,7 @@ def jamming_fn(mean: torch.Tensor, comps: torch.Tensor, keep_k: int, key: np.nda
     def fn(z):
         c = pca_project(z, mean, comps)
         sigma = c.std(dim=tuple(range(c.ndim - 1)), keepdim=True, correction=0)
-        noise = torch.from_numpy(jaxrand.normal(key, tuple(c.shape))).to(c.device) * sigma * scale
+        noise = keyed.normal(key, c.shape, c.device) * sigma * scale
         mask = (torch.arange(c.shape[-1], device=c.device) >= keep_k).to(c.dtype)
         return pca_reconstruct(c * (1 - mask) + noise * mask, mean, comps)
 

@@ -4,9 +4,9 @@ of each clip, then the reliability curve, ECE and whether the MC variance
 predicts errors (numpy, as in the JAX package).
 
 The noise is ``jax.random.normal(key, (n_samples,) + wav.shape)``, drawn
-on the host by :mod:`..utils.jaxrand`; the samples are scored one after
-another, as ``lax.map`` scores them (a batch of another size rounds
-differently).
+on the waveform's device by :mod:`..ops.jaxrand` (the draw kernel on the
+card); the samples are scored one after another, as ``lax.map`` scores
+them (a batch of another size rounds differently).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..utils import jaxrand
+from ..ops import jaxrand as keyed
 
 
 def monte_carlo_scores(
@@ -27,8 +27,7 @@ def monte_carlo_scores(
     sigma: float = 1e-3,
 ) -> torch.Tensor:
     """(B, T) -> (n_samples, B) scores under input Gaussian noise."""
-    noise = jaxrand.normal(key, (n_samples,) + tuple(wav.shape)) * np.float32(sigma)
-    noise = torch.from_numpy(noise).to(wav.device)
+    noise = keyed.normal(key, (n_samples,) + tuple(wav.shape), wav.device) * float(np.float32(sigma))
     return torch.stack([score_fn(wav + n) for n in noise])
 
 

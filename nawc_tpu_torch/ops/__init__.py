@@ -1,3 +1,4 @@
+from . import jaxrand
 from ._lib import KERNELS, plain_versions, reset_launches
 from .rvq import nearest_codebook, nearest_codebook_reference
 from .rvq_fused import rvq_encode_fused, rvq_encode_reference
@@ -5,6 +6,7 @@ from .sswm import whiten_correlate, whiten_correlate_reference
 
 __all__ = [
     "KERNELS",
+    "jaxrand",
     "plain_versions",
     "reset_launches",
     "nearest_codebook",

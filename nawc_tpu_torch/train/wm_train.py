@@ -7,7 +7,9 @@ imperceptibility, and a differentiable attack before the detector: a
 round-robin of 12 DSP augmentations by ``step % 12``, or, on the codec
 branch, the STE round-trip through a frozen codec, whose lookups run the
 nearest-codebook kernel on the card.  Random draws are ``jax.random``'s
-(:mod:`..utils.jaxrand`), from the key the JAX trainer would use.
+(:mod:`..utils.jaxrand`), from the key the JAX trainer would use; the
+noise, scale and reverb draws are made on the batch's device
+(:mod:`..ops.jaxrand`).
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..attacks.dsp import _draw, lossy_codec_surrogate
+from ..attacks.dsp import lossy_codec_surrogate
 from ..dsp.resample import resample, resample_length
 from ..models.neural import NeuralWM, init_neural_wm
+from ..ops import jaxrand as keyed
 from ..utils import jaxrand
 from ..utils.config import NeuralWMConfig
 from ..utils.padding import fix_length, pad_to_multiple
@@ -63,7 +66,7 @@ def _diff_attack(wav: torch.Tensor, key: np.ndarray, step: int, sev: np.float32)
         return w
 
     def noise(w):
-        return w + float(1e-3 + 4e-3 * sev) * _draw(jaxrand.normal, k1, tuple(w.shape), dev)
+        return w + float(1e-3 + 4e-3 * sev) * keyed.normal(k1, w.shape, dev)
 
     def smooth(w):
         f = w.reshape(-1, 1, w.shape[-1])
@@ -72,7 +75,7 @@ def _diff_attack(wav: torch.Tensor, key: np.ndarray, step: int, sev: np.float32)
 
     def scale(w):
         lo, hi = _F32(1.0) - _F32(0.4) * sev, _F32(1.0) + _F32(0.4) * sev
-        return w * _draw(jaxrand.uniform, k2, (w.shape[0], 1), dev, lo, hi)
+        return w * keyed.uniform(k2, (w.shape[0], 1), dev, lo, hi)
 
     def roll(w):
         return torch.roll(w, int(jaxrand.randint(k3, (), -400, 400)), dims=-1)
@@ -105,12 +108,12 @@ def _diff_attack(wav: torch.Tensor, key: np.ndarray, step: int, sev: np.float32)
         return w[..., i0] * (1 - frac) + w[..., i0 + 1] * frac
 
     def reverb(w):
-        t = np.arange(400, dtype=np.int32)
-        ir = jaxrand.normal(k4, (400,)) * np.exp((-t).astype(_F32) / _F32(80.0))
-        ir[0] = _F32(1.0) / (_F32(0.15) * sev + _F32(1e-3))
-        ir = ir / np.sqrt(np.sum(ir * ir, dtype=_F32))
+        t = torch.arange(400, device=dev, dtype=torch.float32)
+        ir = keyed.normal(k4, (400,), dev) * torch.exp(-t / 80.0)
+        ir[0] = float(_F32(1.0) / (_F32(0.15) * sev + _F32(1e-3)))
+        ir = ir / torch.sqrt(torch.sum(ir * ir))
         f = F.pad(w.reshape(-1, 1, w.shape[-1]), (199, 200))  # SAME for 400 taps
-        out = F.conv1d(f, torch.from_numpy(ir.astype(_F32)).to(dev).reshape(1, 1, -1))
+        out = F.conv1d(f, ir.reshape(1, 1, -1))
         return out.reshape(w.shape)
 
     def codec_surrogate(w):

@@ -163,3 +163,75 @@ def assert_csv_close(out: Path, name: str, tol: float, rel: float = 0.0,
             t_, r_ = (cols or {}).get(col, (tol, rel))
             err = np.abs(g.astype(np.float64) - w)
             assert (err <= t_ + r_ * np.abs(w)).all(), (name, col, err.max())
+
+
+def _artists(fig) -> list[dict]:
+    """What a figure draws, axes by axes: its texts (title, axis and tick
+    labels, annotations, legend) and the data of its lines, rectangles
+    (bars, histogram bins), scatter collections and images."""
+    from matplotlib.patches import Rectangle
+
+    out = []
+    for ax in fig.axes:
+        legend = ax.get_legend()
+        rec = {
+            "title": ax.get_title(), "xlabel": ax.get_xlabel(), "ylabel": ax.get_ylabel(),
+            "xticks": [x.get_text() for x in ax.get_xticklabels()],
+            "yticks": [x.get_text() for x in ax.get_yticklabels()],
+            "texts": [x.get_text() for x in ax.texts],
+            "legend": [x.get_text() for x in legend.get_texts()] if legend else [],
+            "lines": [np.asarray(ln.get_xydata(), np.float64) for ln in ax.get_lines()],
+            "bars": [np.array([p.get_x(), p.get_y(), p.get_width(), p.get_height()])
+                     for p in ax.patches if isinstance(p, Rectangle)],
+            "points": [np.asarray(c._offsets3d if hasattr(c, "_offsets3d") else c.get_offsets(), np.float64)
+                       for c in ax.collections],
+            "images": [np.asarray(im.get_array(), np.float64) for im in ax.images],
+        }
+        if hasattr(ax, "get_zlabel"):
+            rec["zlabel"] = ax.get_zlabel()
+        out.append(rec)
+    return out
+
+
+@contextlib.contextmanager
+def drawn(root: Path):
+    """Every figure saved inside, as [(its path relative to `root`, its
+    artists)], recorded by patching ``Figure.savefig`` (after the save)."""
+    from matplotlib.figure import Figure
+
+    records: list = []
+    save = Figure.savefig
+
+    def savefig(fig, fname, *a, **k):
+        save(fig, fname, *a, **k)
+        records.append((str(Path(fname).relative_to(root)), _artists(fig)))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Figure, "savefig", savefig)
+        yield records
+
+
+def assert_same_figures(got: list, want: list, tol: float = 1e-6) -> None:
+    """Two recordings of :func:`drawn`: the same files in the same order,
+    equal texts, the drawn data within `tol`."""
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g_axes), (_, w_axes) in zip(got, want):
+        assert len(g_axes) == len(w_axes), name
+        for g, w in zip(g_axes, w_axes):
+            assert g.keys() == w.keys(), name
+            for k, v in w.items():
+                if k in ("lines", "bars", "points", "images"):
+                    assert len(g[k]) == len(v), (name, k)
+                    for a, b in zip(g[k], v):
+                        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=f"{name} {k}")
+                else:
+                    assert g[k] == v, (name, k, g[k], v)
+
+
+def assert_same_pngs(out: Path) -> list[str]:
+    """The port's CLI under ``out/port`` wrote the PNG set JAX's wrote under
+    ``out/jax``, none empty -> their names."""
+    sets = {s: sorted(str(p.relative_to(out / s)) for p in (out / s).rglob("*.png")) for s in ("port", "jax")}
+    assert sets["port"] == sets["jax"], sets
+    assert all((out / "port" / n).stat().st_size > 0 for n in sets["port"])
+    return sets["port"]

@@ -93,6 +93,13 @@ def test_cli_resume_reads_the_shards(run, capsys):
     assert "attack_type" in table and "bitwise/clean_mean" in table and "vorbis" in table
 
 
+def test_cli_draws_the_jax_figure(run):
+    """The JAX CLI's one PNG, the SI-SNR box plot by attack."""
+    _, out, _ = run
+    assert sorted(p.name for p in out.rglob("*.png")) == ["sisnr_by_attack.png"]
+    assert (out / "sisnr_by_attack.png").stat().st_size > 0
+
+
 def test_port_refuses_the_families_it_lacks():
     """Every family of the JAX CLI builds (``neural`` from the trained
     checkpoint, the codec-latent ones on a codec, which they require, as in

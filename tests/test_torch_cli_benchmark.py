@@ -18,7 +18,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from _torch_port import tiny_codecs
+from _torch_port import assert_same_pngs, tiny_codecs
 from nawc_tpu.cli import benchmark as jax_cli
 from nawc_tpu.cli import watermark as jax_wm_cli
 from nawc_tpu.models import semantic as jax_semantic
@@ -88,6 +88,7 @@ def test_benchmark_cli_writes_the_jax_csvs(data, two_steps, tmp_path, mode):
                     assert g[k] == pytest.approx(v, rel=1e-3, abs=1e-3), (name, k)
                 else:
                     assert g[k] == pytest.approx(v, abs=1e-3), (name, k)
+    assert assert_same_pngs(tmp_path) == (["survival_rates.png"] if mode == "benchmark" else [])
 
 
 def test_benchmark_cli_datasets_and_artifacts(data, two_steps, tmp_path):
@@ -100,6 +101,8 @@ def test_benchmark_cli_datasets_and_artifacts(data, two_steps, tmp_path):
     for f in ("1_original.wav", "2_watermarked.wav", "3_attacked.wav"):
         audio, sr = audio_io.read_wav(art / f)
         assert sr == SR and audio.shape == (1, SR)
+    # the JAX CLI's artifact set: the three WAVs and the 6-panel comparison
+    assert (art / "comparison.png").stat().st_size > 0
 
 
 def test_error_only_methods_fail_the_run():

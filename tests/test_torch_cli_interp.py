@@ -22,7 +22,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from _torch_port import assert_csv_close, cli_common, jax_tiny_codec, run_both, write_cli_data
+from _torch_port import (assert_csv_close, assert_same_figures, assert_same_pngs, cli_common, drawn,
+                         jax_tiny_codec, run_both, write_cli_data)
 from nawc_tpu.cli import ablation as jax_ablation
 from nawc_tpu.cli import manifold as jax_manifold
 from nawc_tpu.cli import perturbation as jax_perturbation
@@ -89,6 +90,7 @@ def test_perturbation_cli_matches_jax(data, tmp_path):
     run_both(perturbation.main, jax_perturbation.main, cli_common(data), tmp_path)
     assert_csv_close(tmp_path, "perturbation_analysis.csv", 1e-10, rel=1e-4)
     assert len(pd.read_csv(tmp_path / "port" / "perturbation_analysis.csv").columns) == 2 + 16
+    assert assert_same_pngs(tmp_path) == ["snr_histogram.png", "spectral_footprint.png"]
 
 
 def test_uncertainty_cli_matches_jax(data, tmp_path, capsys):
@@ -99,6 +101,8 @@ def test_uncertainty_cli_matches_jax(data, tmp_path, capsys):
     want = capsys.readouterr().out.strip().splitlines()[-1]
     assert_csv_close(tmp_path, "uncertainty_results.csv", 1e-3)
     assert_csv_close(tmp_path, "reliability_curve.csv", 1e-3)
+    assert assert_same_pngs(tmp_path) == ["mc_var_prob_correct_vs_wrong_hist.png", "mc_var_prob_roc.png",
+                                          "reliability_curve_mc_mean_prob.png", "variance_boxplots.png"]
     nums = [re.findall(r"(\w+)=(\S+)", s) for s in (got, want)]
     assert [k for k, _ in nums[0]] == [k for k, _ in nums[1]] == ["accuracy", "var_error_auc", "ece"]
     for (_, g), (_, w) in zip(*nums):
@@ -110,12 +114,17 @@ def test_ablation_cli_matches_jax(data, tmp_path):
     run_both(ablation.main, jax_ablation.main, argv, tmp_path)
     assert_csv_close(tmp_path, "layer_ablation.csv", 1e-3)
     assert len(pd.read_csv(tmp_path / "port" / "layer_ablation.csv")) == 2 * 6 * 2
+    assert assert_same_pngs(tmp_path) == ["ablation_heatmap.png", "snac_layer_ablation_chunked.png",
+                                          "snac_layer_ablation_spread_spectrum.png"]
 
 
 def test_manifold_cli_matches_jax(data, two_steps, tmp_path):
     argv = cli_common(data) + ["--watermarks", "spread_spectrum", "semantic_pca"]
     run_both(manifold.main, jax_manifold.main, argv, tmp_path)
     assert_csv_close(tmp_path, "manifold_analysis.csv", 1e-3)
+    assert assert_same_pngs(tmp_path) == sorted(
+        [f"manifold_global_{k}_all.png" for k in ("3d", "delta", "delta_bar")]
+        + [f"plots/{w}/clip_{i}_proj_{w}.png" for w in ("semantic_pca", "spread_spectrum") for i in range(2)])
 
 
 def _write_table(path, sep: str) -> None:
@@ -141,8 +150,12 @@ def test_stats_cli_matches_jax_pandas(tmp_path, sep, capsys):
     table = tmp_path / "test_results.csv"
     _write_table(table, sep)
     argv = ["--results", str(table)]
-    stats.main(argv + ["--out_dir", str(tmp_path / "port")])
-    jax_stats.main(argv + ["--out_dir", str(tmp_path / "jax")])
+    with drawn(tmp_path / "port") as got_fig:
+        stats.main(argv + ["--out_dir", str(tmp_path / "port")])
+    with drawn(tmp_path / "jax") as want_fig:
+        jax_stats.main(argv + ["--out_dir", str(tmp_path / "jax")])
+    assert assert_same_pngs(tmp_path) == ["feature_importance.png"]
+    assert_same_figures(got_fig, want_fig)
     for name in ("stats_by_group.csv", "overall_stats.csv", "feature_importance.csv"):
         got, want = (pd.read_csv(tmp_path / s / name) for s in ("port", "jax"))
         assert list(got.columns) == list(want.columns), name

@@ -14,7 +14,7 @@ change by under 0.5%."""
 
 import pytest
 
-from _torch_port import assert_csv_close, cli_common, jax_tiny_codec, run_both, write_cli_data
+from _torch_port import assert_csv_close, assert_same_pngs, cli_common, jax_tiny_codec, run_both, write_cli_data
 from nawc_tpu.cli import pgd as jax_pgd
 from nawc_tpu_torch.cli import pgd
 
@@ -48,3 +48,5 @@ def test_pgd_cli_matches_jax(data, tmp_path, mode):
     run_both(pgd.main, jax_pgd.main, argv, tmp_path)
     for name, (tol, rel, cols) in PGD_CSVS[mode].items():
         assert_csv_close(tmp_path, name, tol, rel, cols)
+    pngs = {"baselines": ["benchmark_chart.png"], "exp_c": ["experiment_c_results.png"]}
+    assert assert_same_pngs(tmp_path) == pngs.get(mode, [])

@@ -150,7 +150,10 @@ assert {"nawc_tpu_torch.models.semantic", "nawc_tpu_torch.models.token_green",
         "nawc_tpu_torch.eval.reporting", "nawc_tpu_torch.cli.quality",
         "nawc_tpu_torch.cli.sample_data", "nawc_tpu_torch.parallel.mesh",
         "nawc_tpu_torch.parallel.tp", "nawc_tpu_torch.parallel.eval",
-        "nawc_tpu_torch.utils.profiling"} <= set(names)
+        "nawc_tpu_torch.utils.profiling", "nawc_tpu_torch.eval.figures",
+        "nawc_tpu_torch.ops.jaxrand"} <= set(names)
+from nawc_tpu_torch.eval import figures
+assert not figures.available()
 import chip_smoke
 assert callable(chip_smoke.codec_latent) and callable(chip_smoke.pgd_phase)
 assert callable(chip_smoke.neural_phase) and callable(chip_smoke.training_phase)

@@ -331,3 +331,34 @@ def test_codec_training_step_codes_equal_plain(dev):
         for i in range(cfg.num_levels):
             assert torch.equal(got[f"usage_{i}"], want[f"usage_{i}"]), i
         assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+
+
+def _bits(x) -> np.ndarray:
+    return np.ascontiguousarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("draw,shape,key,lohi", [
+    # the uncertainty run's noise: 20 MC passes over 32 clips of 2 s at 16 kHz
+    ("normal", (20, 32, 32_000), (0, 1), None),
+    ("uniform", (20, 32, 32_000), (0, 1), (-0.5, 0.5)),
+    # the sweep's noise attacks on 32 chunks of 2 s at 16 kHz
+    ("normal", (32, 32_000), (0, 0), None),
+    ("uniform", (32, 32_000), (0, 0), (0.0, 1.0)),
+])
+def test_jaxrand_kernel_is_the_replica_bit_for_bit(dev, draw, shape, key, lohi):
+    """Over 10^7 draws and more: one contracted multiply-add in the kernel
+    would show as a few differing draws per million."""
+    from nawc_tpu_torch.ops import jaxrand as keyed
+    from nawc_tpu_torch.utils import jaxrand
+
+    key = np.array(key, np.uint32)
+    before = keyed._KERNEL.launches
+    if draw == "normal":
+        got, want = keyed.normal(key, shape, dev), jaxrand.normal(key, shape)
+    else:
+        got, want = keyed.uniform(key, shape, dev, *lohi), jaxrand.uniform(key, shape, *lohi)
+    torch.cuda.synchronize()
+    assert keyed._KERNEL.launches == before + 1
+    assert got.shape == want.shape and got.device.type == "cuda"
+    diff = _bits(got.cpu().numpy()) != _bits(want)
+    assert not diff.any(), f"{int(diff.sum())} of {diff.size} draws differ, first at {np.argwhere(diff)[:3]}"
