@@ -9,7 +9,9 @@ Phases, each printing its seconds:
    (the CLIs' PNGs); exit 1 without a CUDA device;
 1. build: one ``nvcc`` for each ``nawc_tpu_torch/csrc/*.cu``, all started
    together, linked into the git-ignored ``build/``, printing what
-   ``-Xptxas -v`` reports;
+   ``-Xptxas -v`` reports; the draw kernel's functions must have no stack
+   frame and no spills, and its normal instantiation's SASS (by
+   ``cuobjdump -sass``) no float64 conversion or arithmetic;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -27,7 +29,8 @@ Phases, each printing its seconds:
    (32, 32000) normals and uniforms and vorbis's dither, odd lengths, a
    flat index past one block, keys from split and fold_in, and the
    attacks' uniform ranges, each with its device time, the replica's host
-   time and the bound;
+   time and the bound; and the normal draw's transform over its whole
+   domain, all 2^23 uniforms, through the bits entry;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -113,7 +116,8 @@ Phases, each printing its seconds:
    be non-empty, without it none may, and a line names them.  It prints
    the seconds of each CLI and saliency call, the device time of each
    CLI's draws, the peak memory of the saliency calls and of ``exp_c``,
-   and the device split of one IG step;
+   and the device split of one IG step, its device events beside the
+   kernels it launched;
 15. quality and parallel: ``scipy.signal`` must import (the host metrics
    resample with it); the quality CLI in-process at its defaults
    (``--watermark spread_spectrum`` on 16 speech-like WAVs of 2 s at 16
@@ -204,6 +208,14 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F64_FLOPS = 34e12
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# an FMA-unit instruction (add, multiply or fused multiply-add) is one
+# operation at half the FLOP/s, which count a fused multiply-add as two
+PEAK_F32_INSTR = PEAK_F32_FLOPS / 2
+PEAK_F64_INSTR = PEAK_F64_FLOPS / 2
+# the draw kernel's SASS functions, and the float64 opcodes its normal path must not hold
+JAXRAND_SASS = {"uniform": "keyed_kernelILb0E", "normal": "keyed_kernelILb1E",
+                "normal_of_bits": "normal_of_bits_kernel"}
+F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
 # the kernels of the main path (phase 4); the draw kernel's own path is the sweep (phase 8)
 MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused")
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
@@ -211,6 +223,7 @@ BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
 PRESENCE_TOL = 1e-3
 BATCH, SECONDS, SR = 16, 4, 24_000
+PROFILE_IDLE_S = 0.05  # a profiler window's idle before its calls (device_events)
 
 
 @contextlib.contextmanager
@@ -244,10 +257,14 @@ def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, calls: int = 1) -> list:
+def device_events(fn, calls: int = 1, idle_s: float = PROFILE_IDLE_S) -> list:
     """The device-side events (kernels, copies) of `calls` calls of `fn`,
-    by ``torch.profiler``, summed per name."""
+    by ``torch.profiler``, summed per name.  The window idles `idle_s`
+    before the calls: on the H100 a window that opens on the calls now and
+    then lacks the device records of its first milliseconds (PERF.md §6)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(idle_s)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -486,9 +503,9 @@ def check_rvq_fused(dev, quantizer, cases, label: str) -> dict:
 
 def draw_bound(kind: str, key: np.ndarray, shape: tuple[int, ...], dev) -> tuple[float, str]:
     """-> (least ms on the card, "bytes" or "operations") for one draw: the
-    output written once against the hash's int32 work, the float64 steps
-    and the float32 ones, each on its own unit (the units run side by
-    side, so the slowest of them bounds the operations).  A normal draw's
+    output written once against the hash's int32 work, the float64
+    instructions and the float32 ones, each on its own unit (the units run
+    side by side, so the slowest of them bounds the operations).  A normal draw's
     log1p branch depends on the data: the count is this draw's, from the
     uniform it transforms (|u|^2 < sqrt(2) - 1 takes the rational branch)."""
     n = int(np.prod(shape))
@@ -498,7 +515,7 @@ def draw_bound(kind: str, key: np.ndarray, shape: tuple[int, ...], dev) -> tuple
         rational = int(((u * u) < np.float32(0.41421356237309504880)).sum())
     nb, i32, f64, f32 = keyed.bound_counts(n, kind == "normal", rational)
     t_bytes = nb / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(i32 / PEAK_INT32_OPS, f64 / PEAK_F64_FLOPS, f32 / PEAK_F32_FLOPS) * 1e3
+    t_ops = max(i32 / PEAK_INT32_OPS, f64 / PEAK_F64_INSTR, f32 / PEAK_F32_INSTR) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -561,8 +578,81 @@ def check_jaxrand(dev) -> dict:
         print(line)
     print(f"jaxrand: {counts['normal']} normals and {counts['uniform']} uniforms bit for bit the replica")
     check(counts["normal"] >= 10**7, f"jaxrand: fewer than 10^7 normals checked: {counts}")
+    check_normal_domain(dev)
     rec["held"] = held
     return rec
+
+
+def check_normal_domain(dev) -> None:
+    """The normal draw's transform on every one of its 2^23 inputs (the
+    23-bit mantissas; the low 9 bits, which it drops, set in every 7th)
+    through the bits entry, bit for bit the replica's normal_from_bits."""
+    bits = np.arange(2**23, dtype=np.uint32) << np.uint32(9)
+    bits[::7] |= np.uint32(0x1FF)
+    dbits = torch.from_numpy(bits.view(np.int32)).to(dev)
+    got = keyed.normal_of_bits(dbits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = jaxrand.normal_from_bits(bits)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    differ = np.flatnonzero(got.cpu().numpy().view(np.uint32) != want.view(np.uint32))
+    check(differ.size == 0, f"jaxrand normal_of_bits: {differ.size} of 2^23 inputs differ from the "
+                            f"replica, first {differ[:4].tolist()}")
+    ms = device_ms(lambda: keyed.normal_of_bits(dbits))
+    print(f"jaxrand normal_of_bits: all {bits.size} inputs of the normal transform bit for bit the "
+          f"replica; device {ms:.4f} ms, replica on the host {host_ms:.2f} ms")
+
+
+def sass_opcode(line: str) -> str | None:
+    """The opcode of one ``cuobjdump -sass`` line
+    (``/*0090*/  @P0 DMUL R4, R2, R4 ;  /* 0x... */``), or None."""
+    if "*/" not in line or ";" not in line:
+        return None
+    words = [w for w in line.split("*/", 1)[1].split(";")[0].split() if not w.startswith("@")]
+    return words[0] if words else None
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """The draw kernel's functions in the built library's SASS (``cuobjdump
+    -sass``, beside nvcc) -> per function, its instruction count and the
+    count of each float64 opcode."""
+    cuobjdump = Path(_lib.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        for label, mangled in JAXRAND_SASS.items():
+            if mangled in name:
+                ops = [o for o in map(sass_opcode, body.splitlines()) if o]
+                out[label] = dict(instructions=len(ops), **{
+                    f: sum(o == f or o.startswith(f + ".") for o in ops) for f in F64_OPCODES})
+    return out
+
+
+def check_jaxrand_build(lib: Path, log: str) -> None:
+    """Phase 1's checks of the draw kernel: no stack frame and no spills in
+    its functions (``-Xptxas -v``; only on a fresh build, which is when
+    nvcc prints it), and no float64 work in the normal path's SASS."""
+    props = {}
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and i + 1 < len(lines):
+            props[line.rsplit(" ", 1)[1]] = lines[i + 1].strip()
+    mine = {n: v for n, v in props.items() if "jaxrand_cu" in n}  # the file's own namespace
+    if log:
+        check(len(mine) == len(JAXRAND_SASS) and all(
+            v.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            for v in mine.values()), f"jaxrand: ptxas reports {mine}")
+        print(f"jaxrand ptxas: {mine}")
+    else:
+        print("jaxrand ptxas: the library was built before this run; nvcc printed nothing")
+    counts = sass_counts(lib)
+    print(f"jaxrand SASS (cuobjdump -sass): {counts}")
+    check(set(counts) == set(JAXRAND_SASS), f"jaxrand: SASS functions {sorted(counts)}")
+    for label in ("normal", "normal_of_bits"):
+        check(all(counts[label][op] == 0 for op in F64_OPCODES),
+              f"jaxrand: float64 work in the {label} SASS: {counts[label]}")
 
 
 class DrawRecorder(contextlib.AbstractContextManager):
@@ -1339,7 +1429,8 @@ def saliency_runs(wm, marked: torch.Tensor, msg: torch.Tensor, steps: int = 16) 
     """input_gradient and integrated_gradients of the spread-spectrum score
     on the main path's batch, each against the plain route's, then the
     saliency spectrogram and the top frames: seconds and peak memory per
-    call, and the device split of one IG step."""
+    call, and the device split of one IG step, with its device events
+    beside the kernels it launched."""
     from nawc_tpu_torch import interp
 
     def score(w):
@@ -1367,9 +1458,18 @@ def saliency_runs(wm, marked: torch.Tensor, msg: torch.Tensor, steps: int = 16) 
           f"saliency spectrogram {tuple(spec.shape)}, top frames {tuple(top.shape)}")
     print(f"saliency_spectrogram {tuple(spec.shape)} {ms_spec / 1e3:.3f} s; topk_salient_frames "
           f"{ms_top / 1e3:.3f} s; clip 0's top frames {top[0].tolist()}")
-    kinds = by_kind(device_events(lambda: interp.input_gradient(score, 0.5 * marked)))
+    # a window opened 50 ms before this step lost its forward here, sswm
+    # included, in three runs; one opened 1 s before held all of it
+    before = {n: k.launches for n, k in _lib.KERNELS.items()}
+    ev = device_events(lambda: interp.input_gradient(score, 0.5 * marked), idle_s=1.0)
+    step_launches = {n: k.launches - before[n] for n, k in _lib.KERNELS.items() if k.launches > before[n]}
+    kinds = by_kind(ev)
     print("one IG step (a batched gradient at alpha 0.5), device ms by kind: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    print(f"  its launches {step_launches}; its trace holds the port's kernels: "
+          f"{'nawc kernels' in kinds}; its {len(ev)} device events:")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total):
+        print(f"    {e.self_device_time_total / 1e3:8.4f} ms {e.count:4d}x  {e.key[:110]}")
     out["spectrogram s"], out["topk s"], out["ig step"] = ms_spec / 1e3, ms_top / 1e3, kinds
     return out
 
@@ -1752,6 +1852,7 @@ def main() -> int:
                 print(line.strip())
         _lib.library()
         print(f"built {path.relative_to(REPO)}")
+        check_jaxrand_build(path, log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -1934,6 +2035,8 @@ def main() -> int:
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]
+        check(r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] != 0,
+              f"{n}: a time of 0 ms is a profiler window that lost its events: {r}")
         main_path = n in MAIN_KERNELS
         kernels.append({
             "name": n, "route": "cuda", "source": f"nawc_tpu_torch/csrc/{src}",

@@ -1,7 +1,7 @@
 // Keyed draws of jax.random on the card: uniform and normal float32 from a
 // threefry2x32 key, bit for bit the values of the numpy replica
-// nawc_tpu_torch/utils/jaxrand.py (random_bits, uniform, normal, _log,
-// _log1p, erf_inv), which holds them against jax.random on the CPU.
+// nawc_tpu_torch/utils/jaxrand.py (random_bits, uniform, normal_from_bits,
+// _log, _log1p, erf_inv), which holds them against jax.random on the CPU.
 //
 // Replaces no Pallas kernel: in the JAX package XLA fuses jax.random's
 // threefry hash and its erf_inv into the consumer's program on the
@@ -16,14 +16,20 @@
 // with XLA's CPU erf_inv (Giles' polynomial over its log1p and log).
 //
 // Bit equality is the point, so every step rounds where the replica
-// rounds: its _fma (a float64 product and sum of float32 values, rounded
-// once to float32) is fma64 below, spelled with __dmul_rn / __dadd_rn /
-// __double2float_rn, never fmaf; each unfused float32 step is an
-// __fmul_rn / __fadd_rn / __fsub_rn, which nvcc does not contract;
-// np.sqrt is __fsqrt_rn, the division __fdiv_rn, np.frexp frexpf.  The
-// constants are float32 roundings of the replica's float64 literals
-// ((float) casts, as np.float32 makes them).  Subnormals are kept (nvcc's
-// default -ftz=false), as numpy keeps them.
+// rounds.  The replica's _fma rounds a float64 product and sum to float64,
+// then to float32.  Over the normal draw's whole domain (the 2^23 uniforms
+// its bits can make) every one of those 31 steps per draw equals one
+// rounding of the exact a * b + c (tests/test_torch_jaxrand.py checks all
+// 260,046,848), so the normal instantiation spells each as the hardware's
+// one-rounding __fmaf_rn and does no float64 work.  The uniform's range is
+// the caller's, where no such proof holds: its one multiply-add stays
+// fma64 (__dmul_rn, __dadd_rn, __double2float_rn).  Each unfused float32
+// step is an __fmul_rn / __fadd_rn / __fsub_rn, which nvcc does not
+// contract (fusing _log's p1 or p * x3 + p1 would change a few of the 2^23
+// normals); np.sqrt is __fsqrt_rn, the division __fdiv_rn, np.frexp
+// frexpf.  The constants are float32 roundings of the replica's float64
+// literals ((float) casts, as np.float32 makes them).  Subnormals are kept
+// (nvcc's default -ftz=false), as numpy keeps them.
 //
 // What bounds it on an H100, for N draws (the uncertainty run's 20 x 32 x
 // 32000 = 20.48 M normals):
@@ -31,12 +37,19 @@
 //   int32  about 75 operations per draw for the hash (20 rounds of add,
 //          rotate, xor; the key injections; the mantissa) -> 92 us at
 //          16.7 TOP/s (132 SMs x 64 INT32 lanes x 1.98 GHz);
-//   fp64   2 per uniform, 2 + 18 + 30 (log1p's rational) or 12 (its log)
-//          per normal, about 43 on average -> 26 us at 34 TFLOP/s.
-// So the hash's integer work bounds it.  Design: one thread per element,
-// no shared memory, no reads; the launch writes coalesced float32.  The
-// two branches of log1p and erf_inv diverge within a warp; a simple
-// kernel that is exact comes first.
+//   fp32   about 37 FMA-unit instructions per normal (15, then 20 on
+//          log1p's rational branch or 24 on its log) -> 23 us at 33.5 G
+//          warp-lane instructions per ms (half of 67 TFLOP/s);
+//   issue  a warp runs both log1p branches wherever its draws take both
+//          (nearly every warp), so about 170 instructions per warp of
+//          draws go through a scheduler that issues one a clock: 640 k
+//          warps over 528 schedulers -> about 104 us at 1.98 GHz.
+// So the hash's integer work, and the scheduler's issue slots close
+// behind it, bound the normal draw; the uniform is the hash alone.
+// Design: one thread per element, every helper inlined (no call, no stack
+// frame), no shared memory, no reads; the launch writes coalesced float32.
+// normal_of_bits is the same transform on given bits: it lets the card be
+// checked over the transform's whole domain, and no path calls it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +82,9 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
   four_rounds<13, 15, 26, 6>(x0, x1);  x0 += k2; x1 += k0 + 5u;
 }
 
-// the replica's _fma: float32 a * b + c through float64, rounded once
+// the replica's _fma for a uniform over the caller's range: float32
+// a * b + c through float64 (the product exact, the sum rounded), then
+// float32
 __device__ __forceinline__ float fma64(float a, float b, float c) {
   return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
 }
@@ -77,7 +92,7 @@ __device__ __forceinline__ float fma64(float a, float b, float c) {
 #define F32(x) ((float)(x))
 
 // XLA's float32 log for 0 < v < 1 (the replica's _log)
-__device__ float xla_log(float v) {
+__device__ __forceinline__ float xla_log(float v) {
   int ei;
   const float m = frexpf(v, &ei);
   float e = (float)ei;
@@ -90,14 +105,14 @@ __device__ float xla_log(float v) {
                             F32(1.1676998740e-1));
   const float p1 = __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(x, F32(-1.2420140846e-1)), F32(1.4249322787e-1)), x),
                              F32(-1.6668057665e-1));
-  const float p2 = fma64(fma64(x, F32(2.0000714765e-1), F32(-2.4999993993e-1)), x, F32(3.3333331174e-1));
-  float y = fma64(__fadd_rn(__fmul_rn(p, x3), p1), x3, p2);
-  y = fma64(y, x3, __fmul_rn(F32(-2.12194440e-4), e));
-  return fma64(F32(0.693359375), e, __fadd_rn(fma64(-0.5f, x2, x), y));
+  const float p2 = __fmaf_rn(__fmaf_rn(x, F32(2.0000714765e-1), F32(-2.4999993993e-1)), x, F32(3.3333331174e-1));
+  float y = __fmaf_rn(__fadd_rn(__fmul_rn(p, x3), p1), x3, p2);
+  y = __fmaf_rn(y, x3, __fmul_rn(F32(-2.12194440e-4), e));
+  return __fmaf_rn(F32(0.693359375), e, __fadd_rn(__fmaf_rn(-0.5f, x2, x), y));
 }
 
 // XLA's float32 log1p for -1 < x <= 0 (the replica's _log1p)
-__device__ float xla_log1p(float x) {
+__device__ __forceinline__ float xla_log1p(float x) {
   if (!(fabsf(x) < F32(0.41421356237309504880))) return xla_log(__fadd_rn(1.0f, x));
   // Cephes' rational approximation, highest power first
   const float num[7] = {F32(4.5270000862445199635215e-5), F32(4.9854102823193375972212e-1),
@@ -110,16 +125,16 @@ __device__ float xla_log1p(float x) {
   float pn = 0.0f, pd = 0.0f;
 #pragma unroll
   for (int i = 0; i < 7; ++i) {
-    pn = fma64(pn, x, num[i]);
-    pd = fma64(pd, x, den[i]);
+    pn = __fmaf_rn(pn, x, num[i]);
+    pd = __fmaf_rn(pd, x, den[i]);
   }
   const float x2 = __fmul_rn(x, x);
   const float r = __fdiv_rn(pn, pd);
-  return __fadd_rn(x, fma64(-0.5f, x2, __fmul_rn(__fmul_rn(x, x2), r)));
+  return __fadd_rn(x, __fmaf_rn(-0.5f, x2, __fmul_rn(__fmul_rn(x, x2), r)));
 }
 
 // XLA's float32 erf_inv for |x| < 1 (the replica's erf_inv)
-__device__ float xla_erf_inv(float x) {
+__device__ __forceinline__ float xla_erf_inv(float x) {
   // Giles' coefficients for w < 5 and w >= 5, highest power first
   const float c_lo[9] = {F32(2.81022636e-08), F32(3.43273939e-07), F32(-3.5233877e-06),
                          F32(-4.39150654e-06), F32(0.00021858087), F32(-0.00125372503),
@@ -132,34 +147,71 @@ __device__ float xla_erf_inv(float x) {
   w = lo ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
   float p = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) p = fma64(p, w, lo ? c_lo[i] : c_hi[i]);
+  for (int i = 0; i < 9; ++i) p = __fmaf_rn(p, w, lo ? c_lo[i] : c_hi[i]);
   return __fmul_rn(p, x);
 }
 
+// the unit uniform in [0, 1) of the 23 high bits
+__device__ __forceinline__ float unit_of_bits(uint32_t bits) {
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+}
+
+// the replica's normal_from_bits: the uniform over (nextafter(-1, 0), 1),
+// whose span 1 - lo rounds to 2 in float32, then sqrt(2) erf_inv
+__device__ __forceinline__ float normal_of_bits(uint32_t bits) {
+  const float lo = __uint_as_float(0xBF7FFFFFu);  // nextafter(-1, 0)
+  const float v = fmaxf(lo, __fmaf_rn(unit_of_bits(bits), 2.0f, lo));
+  return __fmul_rn(F32(1.4142135623730951), xla_erf_inv(v));
+}
+
+template <bool kNormal>
 __global__ void __launch_bounds__(kThreads)
-jaxrand_kernel(float* __restrict__ out, long long n, uint32_t k0, uint32_t k1, int normal,
-               float lo, float span) {
+keyed_kernel(float* __restrict__ out, long long n, uint32_t k0, uint32_t k1, float lo, float span) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   uint32_t x0 = (uint32_t)((unsigned long long)i >> 32), x1 = (uint32_t)i;
   threefry2x32(k0, k1, x0, x1);
   const uint32_t bits = x0 ^ x1;
-  const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  const float v = fmaxf(lo, fma64(u, span, lo));
-  out[i] = normal ? __fmul_rn(F32(1.4142135623730951), xla_erf_inv(v)) : v;
+  out[i] = kNormal ? normal_of_bits(bits) : fmaxf(lo, fma64(unit_of_bits(bits), span, lo));
+}
+
+__global__ void __launch_bounds__(kThreads)
+normal_of_bits_kernel(float* __restrict__ out, const uint32_t* __restrict__ bits, long long n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = normal_of_bits(bits[i]);
+}
+
+int grid(long long n, unsigned* blocks) {
+  const long long b = (n + kThreads - 1) / kThreads;
+  if (b > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  *blocks = (unsigned)b;
+  return 0;
 }
 
 }  // namespace
 
-// out (n,) float32; key (k0, k1); normal = 0: uniform over [lo, lo + span),
-// normal = 1: the normal draw, with lo = nextafter(-1, 0) and span = 1 - lo
-// in float32, as the replica's normal passes them to its uniform.
+// out (n,) float32; key (k0, k1); normal = 0: uniform over [lo, lo + span);
+// normal = 1: the normal draw, whose uniform range is fixed (lo and span
+// are not read).
 extern "C" int nawc_jaxrand(float* out, long long n, unsigned int k0, unsigned int k1, int normal,
                             float lo, float span, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  jaxrand_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(out, n, k0, k1, normal, lo,
-                                                                          span);
+  unsigned blocks;
+  if (int err = grid(n, &blocks)) return err;
+  if (normal)
+    keyed_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(out, n, k0, k1, lo, span);
+  else
+    keyed_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(out, n, k0, k1, lo, span);
+  return (int)cudaGetLastError();
+}
+
+// out (n,) float32: the normal of each of the n uint32 `bits`, by the
+// keyed normal draw's device code
+extern "C" int nawc_jaxrand_normal_of_bits(float* out, const unsigned int* bits, long long n,
+                                           void* stream) {
+  if (n <= 0) return 0;
+  unsigned blocks;
+  if (int err = grid(n, &blocks)) return err;
+  normal_of_bits_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(out, bits, n);
   return (int)cudaGetLastError();
 }

@@ -75,26 +75,39 @@ def random_bits(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     return (y1 ^ y2).reshape(shape)
 
 
-def _unit_uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
-    """float32 uniform in [0, 1): 23 random mantissa bits under exponent 0."""
-    bits = random_bits(key, shape)
-    fbits = (bits >> _U32(32 - 23)) | np.array(1.0, np.float32).view(_U32)
+def _unit_of_bits(bits: np.ndarray) -> np.ndarray:
+    """float32 uniform in [0, 1): the 23 high bits of `bits` as the mantissa
+    under exponent 0."""
+    fbits = (np.asarray(bits, _U32) >> _U32(32 - 23)) | np.array(1.0, np.float32).view(_U32)
     return fbits.view(np.float32) - np.float32(1.0)
+
+
+def _unit_uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """float32 uniform in [0, 1) from 23 random mantissa bits."""
+    return _unit_of_bits(random_bits(key, shape))
+
+
+def _scaled(u: np.ndarray, minval, maxval) -> np.ndarray:
+    """The unit uniform `u` over [minval, maxval): XLA on the CPU fuses
+    ``u * (maxval - minval) + minval`` into one multiply-add (:func:`_fma`)."""
+    lo, hi = _F32(minval), _F32(maxval)
+    return np.maximum(lo, _fma(u, hi - lo, lo))
 
 
 def uniform(key: np.ndarray, shape: tuple[int, ...], minval: float = 0.0,
             maxval: float = 1.0) -> np.ndarray:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``.  XLA on
-    the CPU fuses ``u * (maxval - minval) + minval`` into one multiply-add,
-    rounded once, as :func:`_fma` does."""
-    lo, hi = _F32(minval), _F32(maxval)
-    u = _unit_uniform(key, shape)
-    return np.maximum(lo, _fma(u, hi - lo, lo))
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return _scaled(_unit_uniform(key, shape), minval, maxval)
 
 
 def _fma(a, b, c) -> np.ndarray:
-    """float32 ``a * b + c`` rounded once, as XLA's CPU code contracts it:
-    float64 holds the product of two float32 exactly."""
+    """float32 ``a * b + c`` as XLA's CPU code contracts it: float64 holds
+    the product of two float32 exactly, and the sum is rounded to float64,
+    then to float32.  That double rounding equals one rounding of the exact
+    ``a * b + c`` (a float32 fma) at every step over every input of
+    :func:`normal_from_bits`, its 2^23 uniforms (shown in
+    ``tests/test_torch_jaxrand.py``); over an arbitrary uniform range it is
+    not shown, so the card's uniform draw keeps the float64 steps."""
     f64 = np.float64
     return (np.asarray(a, f64) * np.asarray(b, f64) + np.asarray(c, f64)).astype(_F32)
 
@@ -177,12 +190,18 @@ def erf_inv(x: np.ndarray) -> np.ndarray:
     return p * x
 
 
-def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
-    """``jax.random.normal(key, shape, float32)``: sqrt(2) erf_inv(u) of a
-    uniform u in (-1, 1); within 2 ulp of JAX's, equal in all but about one
-    draw in 10^6 (see :func:`_log`)."""
+def normal_from_bits(bits: np.ndarray) -> np.ndarray:
+    """The normal that ``jax.random.normal`` makes of 32 random bits (uint32):
+    sqrt(2) erf_inv(u) of the uniform u in (-1, 1) of their 23 high bits."""
     lo = np.nextafter(_F32(-1.0), _F32(0.0))
-    return _F32(np.sqrt(2)) * erf_inv(uniform(key, shape, lo, _F32(1.0)))
+    return _F32(np.sqrt(2)) * erf_inv(_scaled(_unit_of_bits(bits), lo, _F32(1.0)))
+
+
+def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.normal(key, shape, float32)``: :func:`normal_from_bits`
+    of :func:`random_bits`; within 2 ulp of JAX's, equal in all but about
+    one draw in 10^6 (see :func:`_log`)."""
+    return normal_from_bits(random_bits(key, shape))
 
 
 def split(key: np.ndarray, num: int = 2) -> np.ndarray:

@@ -11,6 +11,9 @@ The kernel itself is held against the replica on the card in
 ``test_torch_kernels_cuda.py``."""
 
 import contextlib
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -98,11 +101,135 @@ def test_keyed_draws_do_not_fall_back_to_the_host_for_cuda():
 
 
 def test_bound_counts_scale_with_the_draws():
+    """A uniform spends the float64 multiply and add of its rounded-once
+    step; a normal draw float32 FMA-unit instructions only."""
     nb, i32, f64, f32 = keyed.bound_counts(1000)
-    assert (nb, i32, f64) == (4000.0, 75_000.0, 2000.0)
-    _, _, f64_n, _ = keyed.bound_counts(1000, normal=True, n_log1p_rational=1000)
-    _, _, f64_l, _ = keyed.bound_counts(1000, normal=True, n_log1p_rational=0)
-    assert f64_n == 50 * 1000 and f64_l == 32 * 1000
+    assert (nb, i32, f64, f32) == (4000.0, 75_000.0, 2000.0, 1000.0)
+    _, i32_n, f64_n, f32_n = keyed.bound_counts(1000, normal=True, n_log1p_rational=1000)
+    _, _, f64_l, f32_l = keyed.bound_counts(1000, normal=True, n_log1p_rational=0)
+    assert i32_n == 75_000.0 and f64_n == f64_l == 0.0
+    assert f32_n == 35 * 1000 and f32_l == 39 * 1000
+
+
+# ---- the normal draw's transform over its whole domain: its 2^23 uniforms
+
+_ALL_BITS = np.arange(2**23, dtype=np.uint32) << np.uint32(9)  # every 23-bit mantissa
+_FMA_STEPS_PER_NORMAL = 31  # uniform 1, erf_inv 9, log1p's rational 15, its log 6 (numpy runs both)
+
+
+def _normals_of_every_input() -> np.ndarray:
+    """The replica's normal of each of the 2^23 inputs, in chunks of 2^21."""
+    return np.concatenate([jaxrand.normal_from_bits(_ALL_BITS[i:i + 2**21])
+                           for i in range(0, _ALL_BITS.size, 2**21)])
+
+
+def _fma_once(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once: the product is exact in float64,
+    the sum is rounded to odd in float64 (its exact error by TwoSum), then
+    to nearest float32, which rounds the exact value once (Boldo and
+    Melquiond: round-to-odd with 53 >= 24 + 2 bits)."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (np.asarray(s).view(np.int64) & 1) == 0
+    toward = np.nextafter(s, np.where(err > 0, np.inf, -np.inf))
+    return np.where((err != 0) & even, toward, s).astype(np.float32)
+
+
+def test_fma_once_rounds_once_where_float64_rounds_twice():
+    """a b = 1 + 2^-24 exactly (97 x 257 x 673 = 2^24 + 1), the float32
+    midpoint between 1 and 1 + 2^-23; c = +-2^-80 puts the exact sum just
+    above or below it.  float64 rounds the sum onto the midpoint, which then
+    ties to even (1); one rounding goes to the exact sum's side."""
+    a, b = np.float32(97 * 257 / 2**14), np.float32(673 / 2**10)
+    assert np.float64(a) * np.float64(b) == 1 + 2**-24
+    up, down = np.float32(2**-80), np.float32(-(2**-80))
+    assert _fma_once(a, b, up) == np.float32(1 + 2**-23)
+    assert jaxrand._fma(a, b, up) == np.float32(1.0)
+    assert _fma_once(a, b, down) == jaxrand._fma(a, b, down) == np.float32(1.0)
+    assert _fma_once(a, b, np.float32(0.0)) == np.float32(1.0)  # an exact tie, to even
+
+
+@pytest.fixture(scope="module")
+def every_normal():
+    """The replica over all 2^23 inputs of the normal transform, each of its
+    ``_fma`` steps checked against one rounding -> (steps, steps whose two
+    roundings differ, the 2^23 normals)."""
+    tally = {"steps": 0, "differ": 0}
+    twice = jaxrand._fma
+
+    def checked(a, b, c):
+        got = twice(a, b, c)
+        once = _fma_once(a, b, c)
+        tally["steps"] += got.size
+        tally["differ"] += int((np.asarray(got).view(np.uint32) != once.view(np.uint32)).sum())
+        return got
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jaxrand, "_fma", checked)
+        normals = _normals_of_every_input()
+    return tally["steps"], tally["differ"], normals
+
+
+def test_normal_fma_steps_round_once_over_every_input(every_normal):
+    """Every multiply-add the replica rounds twice (float64, then float32)
+    gives the bits of one rounding over the normal's whole domain: the
+    card's normal draw may use a float32 fma and stay bit for bit."""
+    steps, differ, normals = every_normal
+    assert steps == _FMA_STEPS_PER_NORMAL * 2**23 == 260_046_848
+    assert differ == 0
+    assert normals.dtype == np.float32 and bool(np.isfinite(normals).all())
+    assert np.array_equal(normals[:4099].view(np.uint32),
+                          jaxrand.normal_from_bits(_ALL_BITS[:4099]).view(np.uint32))
+
+
+def _log_p1_fused(v):
+    """``jaxrand._log`` with its unfused ``p1`` contracted into two fmas."""
+    lp = jaxrand._LOG_P
+    m, e = np.frexp(v)
+    m, e = m.astype(np.float32), e.astype(np.float32)
+    small = m < np.float32(0.707106781186547524)
+    e = e - small.astype(np.float32)
+    x = (m - np.float32(1)) + np.where(small, m, np.float32(0))
+    x2 = x * x
+    x3 = x2 * x
+    p = (x * lp[0] + lp[1]) * x + lp[2]
+    p1 = jaxrand._fma(jaxrand._fma(x, lp[3], lp[4]), x, lp[5])
+    p2 = jaxrand._fma(jaxrand._fma(x, lp[6], lp[7]), x, lp[8])
+    y = jaxrand._fma(p * x3 + p1, x3, p2)
+    y = jaxrand._fma(y, x3, np.float32(-2.12194440e-4) * e)
+    return jaxrand._fma(np.float32(0.693359375), e, jaxrand._fma(np.float32(-0.5), x2, x) + y)
+
+
+def test_contracting_an_unfused_step_changes_a_normal(every_normal, monkeypatch):
+    """The negative control: the steps the replica leaves unfused must stay
+    so; fusing ``_log``'s p1 moves some of the 2^23 normals."""
+    *_, normals = every_normal
+    monkeypatch.setattr(jaxrand, "_log", _log_p1_fused)
+    fused = _normals_of_every_input()
+    assert int((fused.view(np.uint32) != normals.view(np.uint32)).sum()) >= 1
+
+
+@pytest.mark.parametrize("bits", [_ALL_BITS[::4099],
+                                  np.array([0, 511, 512, 0xFFFFFFFF, 0x80000000], np.uint32)])
+def test_normal_of_bits_on_the_cpu_is_the_replica(bits):
+    got = keyed.normal_of_bits(torch.from_numpy(bits.view(np.int32)))
+    assert got.dtype == torch.float32 and got.shape == bits.shape
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(jaxrand.normal_from_bits(bits)))
+
+
+@pytest.mark.parametrize("tool", ["jaxrand_times", "profiler_windows"])
+def test_measurement_tools_need_a_card(tool):
+    """The draw timing and the profiler-window count measure the card only:
+    without one they exit 1 and print no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "-m", f"nawc_tpu_torch.tools.{tool}"],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 1 and "no CUDA device" in proc.stderr and not proc.stdout
 
 
 def _clips(n=2, t_len=16_000, seed=0):

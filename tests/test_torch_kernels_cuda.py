@@ -362,3 +362,22 @@ def test_jaxrand_kernel_is_the_replica_bit_for_bit(dev, draw, shape, key, lohi):
     assert got.shape == want.shape and got.device.type == "cuda"
     diff = _bits(got.cpu().numpy()) != _bits(want)
     assert not diff.any(), f"{int(diff.sum())} of {diff.size} draws differ, first at {np.argwhere(diff)[:3]}"
+
+
+def test_jaxrand_normal_of_every_uniform_is_the_replica(dev):
+    """The normal draw's device code over its whole domain: every 23-bit
+    mantissa (the low 9 bits, which the draw drops, set in a few), bit for
+    bit the replica's ``normal_from_bits``; the draw's float32 fmas stand
+    in for the replica's twice-rounded steps only because they agree on
+    all of these."""
+    from nawc_tpu_torch.ops import jaxrand as keyed
+    from nawc_tpu_torch.utils import jaxrand
+
+    bits = np.arange(2**23, dtype=np.uint32) << np.uint32(9)
+    bits[::7] |= np.uint32(0x1FF)
+    before = keyed._BITS_KERNEL.launches
+    got = keyed.normal_of_bits(torch.from_numpy(bits.view(np.int32)).to(dev))
+    torch.cuda.synchronize()
+    assert keyed._BITS_KERNEL.launches == before + 1 and got.device.type == "cuda"
+    diff = _bits(got.cpu().numpy()) != _bits(jaxrand.normal_from_bits(bits))
+    assert not diff.any(), f"{int(diff.sum())} of {diff.size} normals differ, first at {np.flatnonzero(diff)[:3]}"
