@@ -9,9 +9,10 @@ Phases, each printing its seconds:
    (the CLIs' PNGs); exit 1 without a CUDA device;
 1. build: one ``nvcc`` for each ``nawc_tpu_torch/csrc/*.cu``, all started
    together, linked into the git-ignored ``build/``, printing what
-   ``-Xptxas -v`` reports; the draw kernel's functions must have no stack
-   frame and no spills, and its normal instantiation's SASS (by
-   ``cuobjdump -sass``) no float64 conversion or arithmetic;
+   ``-Xptxas -v`` reports; the draw kernel's and the Snake kernel's
+   functions must have no stack frame and no spills, the draw's normal
+   instantiation's SASS (by ``cuobjdump -sass``) no float64 conversion or
+   arithmetic, and the Snake functions' opcodes are printed;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -30,12 +31,18 @@ Phases, each printing its seconds:
    flat index past one block, keys from split and fold_in, and the
    attacks' uniform ranges, each with its device time, the replica's host
    time and the bound; and the normal draw's transform over its whole
-   domain, all 2^23 uniforms, through the bits entry;
+   domain, all 2^23 uniforms, through the bits entry; and the Snake kernel
+   (``csrc/snake.cu``) at the five shapes of one encode in float32 and
+   bfloat16: the forward bit for bit the plain version, the backward's dx
+   and d log_alpha against autograd of the plain forward, dx bit for bit
+   its formula, two runs bit for bit, device and wall ms of each pass
+   beside the plain version's and the bound, and their sums over an encode;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
    on 16 clips x 4 s at 24 kHz, then ``codec.encode``, held against the same
-   calls with the plain versions; every kernel must have launched;
+   calls with the plain versions; every kernel of the path (the Snake's
+   forward included) must have launched;
 5. serving: ``WatermarkService`` embeds and detects 6 ragged requests;
 6. timing: embed, encode, detect and the three together per 16 x 4 s batch
    by CUDA events over chained iterations (a record, not a benchmark);
@@ -152,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -185,6 +193,7 @@ from nawc_tpu_torch.attacks.pgd import _grad  # noqa: E402
 from nawc_tpu_torch.eval import figures  # noqa: E402
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
 from nawc_tpu_torch.ops import jaxrand as keyed  # noqa: E402
+snake_ops = importlib.import_module("nawc_tpu_torch.ops.snake")  # the module; ops.snake is the op
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
 from nawc_tpu_torch.train.adversarial import (  # noqa: E402
     decoder_only_tx, init_discriminators, make_gan_train_step)
@@ -216,8 +225,10 @@ PEAK_F64_INSTR = PEAK_F64_FLOPS / 2
 JAXRAND_SASS = {"uniform": "keyed_kernelILb0E", "normal": "keyed_kernelILb1E",
                 "normal_of_bits": "normal_of_bits_kernel"}
 F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
-# the kernels of the main path (phase 4); the draw kernel's own path is the sweep (phase 8)
-MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused")
+# the kernels of the main path (phase 4); the draw kernel's own path is the
+# sweep (phase 8), the Snake backward's the trainers (phase 13)
+MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake")
+LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)"}
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
@@ -320,7 +331,7 @@ def by_kind(events) -> dict[str, float]:
     for e in events:
         kname = e.key.lower()
         group = ("nawc kernels" if any(k in kname for k in ("sswm_", "nearest_codebook",
-                                                             "rvq_encode", "jaxrand"))
+                                                             "rvq_encode", "jaxrand", "snake_"))
                  else "convolution" if any(k in kname for k in ("conv", "xmma", "implicit_gemm"))
                  else "elementwise" if "elementwise" in kname
                  else "fft" if "fft" in kname
@@ -612,33 +623,46 @@ def sass_opcode(line: str) -> str | None:
     return words[0] if words else None
 
 
-def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """The draw kernel's functions in the built library's SASS (``cuobjdump
-    -sass``, beside nvcc) -> per function, its instruction count and the
-    count of each float64 opcode."""
+def sass_functions(lib: Path) -> dict[str, list[str]]:
+    """The built library's SASS (``cuobjdump -sass``, beside nvcc) -> each
+    function's opcodes."""
     cuobjdump = Path(_lib.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     out = {}
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
+        out[name.strip()] = [o for o in map(sass_opcode, body.splitlines()) if o]
+    return out
+
+
+def sass_counts(funcs: dict[str, list[str]]) -> dict[str, dict[str, int]]:
+    """The draw kernel's functions -> per function, its instruction count and
+    the count of each float64 opcode."""
+    out = {}
+    for name, ops in funcs.items():
         for label, mangled in JAXRAND_SASS.items():
             if mangled in name:
-                ops = [o for o in map(sass_opcode, body.splitlines()) if o]
                 out[label] = dict(instructions=len(ops), **{
                     f: sum(o == f or o.startswith(f + ".") for o in ops) for f in F64_OPCODES})
     return out
 
 
-def check_jaxrand_build(lib: Path, log: str) -> None:
-    """Phase 1's checks of the draw kernel: no stack frame and no spills in
-    its functions (``-Xptxas -v``; only on a fresh build, which is when
-    nvcc prints it), and no float64 work in the normal path's SASS."""
+def ptxas_properties(log: str) -> dict[str, str]:
+    """What ``-Xptxas -v`` says of each function: its stack frame and spills."""
     props = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Function properties for" in line and i + 1 < len(lines):
             props[line.rsplit(" ", 1)[1]] = lines[i + 1].strip()
+    return props
+
+
+def check_jaxrand_build(funcs: dict[str, list[str]], log: str) -> None:
+    """Phase 1's checks of the draw kernel: no stack frame and no spills in
+    its functions (``-Xptxas -v``; only on a fresh build, which is when
+    nvcc prints it), and no float64 work in the normal path's SASS."""
+    props = ptxas_properties(log)
     mine = {n: v for n, v in props.items() if "jaxrand_cu" in n}  # the file's own namespace
     if log:
         check(len(mine) == len(JAXRAND_SASS) and all(
@@ -647,7 +671,7 @@ def check_jaxrand_build(lib: Path, log: str) -> None:
         print(f"jaxrand ptxas: {mine}")
     else:
         print("jaxrand ptxas: the library was built before this run; nvcc printed nothing")
-    counts = sass_counts(lib)
+    counts = sass_counts(funcs)
     print(f"jaxrand SASS (cuobjdump -sass): {counts}")
     check(set(counts) == set(JAXRAND_SASS), f"jaxrand: SASS functions {sorted(counts)}")
     for label in ("normal", "normal_of_bits"):
@@ -718,6 +742,165 @@ def check_draw_pairs(got, want) -> dict:
         check(same_bits(og, ow), f"draw {_ident(kg, ag)[::2]} differs from the replica's")
         values += og.numel()
     return dict(draws=len(got), values=values)
+
+
+# ------------------------------------------------------------------ the Snake (phases 1, 2)
+
+# one 16 x 4 s encode at CodecConfig(): per encoder block 7 Snakes at its
+# (C, T), and the final one at (768, 188)
+SNAKE_SHAPES = ((BATCH, 48, 96_000, 7), (BATCH, 96, 48_000, 7), (BATCH, 192, 12_000, 7),
+                (BATCH, 384, 1_500, 7), (BATCH, 768, 188, 1))
+SNAKE_DX_TOL = 1e-6    # dx against plain autograd, of the largest |dx| (float32)
+SNAKE_DLA_TOL = 1e-5   # d log_alpha against plain autograd, relative (float32)
+
+
+def bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def check_snake_build(funcs: dict[str, list[str]], log: str) -> None:
+    """Phase 1's checks of the Snake kernel: no stack frame and no spills in
+    its six functions (``-Xptxas -v``; only on a fresh build), and its
+    forward's SASS opcodes, read for the fused multiply-adds: the formula's
+    separate multiplies and adds are __fmul_rn / __fadd_rn, so an FFMA
+    there can only come from the IEEE divisions' own sequences."""
+    props = ptxas_properties(log)
+    mine = {n: v for n, v in props.items() if "snake_cu" in n}
+    if log:
+        check(len(mine) == 6 and all(
+            v.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            for v in mine.values()), f"snake: ptxas reports {mine}")
+        print(f"snake ptxas: {mine}")
+    else:
+        print("snake ptxas: the library was built before this run; nvcc printed nothing")
+    kinds = ("FFMA", "FMUL", "FADD", "MUFU", "FRND", "FSETP", "CALL", "BSSY", "LDG", "STG")
+    for name, ops in funcs.items():
+        if "snake_" in name and "_kernel" in name:
+            counts = {k: sum(o == k or o.startswith(k + ".") for o in ops) for k in kinds}
+            print(f"snake SASS {name[:60]}: {len(ops)} instructions, {counts}")
+
+
+def snake_scalar_divisors(x: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
+    """The plain Snake as it stood before the kernel, dividing by Python
+    numbers: on the card eager PyTorch multiplies by their rounded
+    reciprocals there, which JAX does not."""
+    alpha = torch.exp(la).to(x.dtype)[None, :, None]
+    u = alpha.float() * x.float() * (1.0 / np.pi)
+    u = u - torch.round(u)
+    p = u * np.pi
+    p2 = p * p
+    s = p * (1.0 - p2 / 6.0 * (1.0 - p2 / 20.0 * (1.0 - p2 / 42.0)))
+    return x + (s * s).to(x.dtype) / (alpha + 1e-9)
+
+
+def snake_case(b: int, c: int, t: int, dtype, dev, seed: int):
+    """x at 2 sigma, log alpha at 0.3 sigma, g at 1 sigma, drawn on the
+    card by a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((b, c, t), generator=gen, device=dev) * 2).to(dtype)
+    la = torch.randn((c,), generator=gen, device=dev) * 0.3
+    g = torch.randn((b, c, t), generator=gen, device=dev).to(dtype)
+    return x, la, g
+
+
+def backward_ms(x: torch.Tensor, la: torch.Tensor, g: torch.Tensor, plain: bool) -> tuple[float, float]:
+    """Device ms and eager wall ms of one backward of the Snake (the kernel's,
+    or autograd's of the plain version) on a graph built once."""
+    xr, lr = x.clone().requires_grad_(), la.clone().requires_grad_()
+    with _lib.plain_versions() if plain else contextlib.nullcontext():
+        y = snake_ops.snake(xr, lr)
+
+    def fn():
+        return torch.autograd.grad(y, (xr, lr), g, retain_graph=True)
+
+    return device_ms(fn), wall_ms(fn, iters=10)
+
+
+def check_snake(dev) -> dict:
+    """The Snake kernels against their plain versions at the five shapes of
+    one 16 x 4 s encode, in float32 and bfloat16: the forward bit for bit;
+    the backward's dx and d log_alpha against autograd of the plain forward
+    (float32 by SNAKE_DX_TOL and SNAKE_DLA_TOL, bfloat16 within one bfloat16
+    ulp of the largest of each), dx bit for bit the kernel's formula
+    ``snake_backward_reference`` on the card, and two runs bit for bit.  Each
+    with device ms per call, plain ms, eager wall and the bound; the sums
+    over one encode (7 Snakes a block) against its bound.
+    -> {"snake": record, "snake_backward": record}."""
+    sums = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        acc = dict(f=0.0, fp=0.0, b=0.0, bp=0.0, err_f=0.0, err_dx=0.0)
+        counts = np.zeros((2, 2))  # (forward, backward) x (bytes, operations) of one encode
+        for i, (b, c, t, count) in enumerate(SNAKE_SHAPES):
+            x, la, g = snake_case(b, c, t, dtype, dev, seed=20 + i)
+            n = x.numel()
+            with torch.no_grad():
+                got = snake_ops.snake(x, la)
+                want = snake_ops.snake_reference(x, la)
+            differ = int((got != want).sum())
+            err_f = float((got.float() - want.float()).abs().max())
+            check(differ == 0, f"snake {tag} {(b, c, t)}: {differ} of {n} outputs differ from plain "
+                               f"(max {err_f:.3g})")
+            if i == 0:
+                with torch.no_grad():
+                    old = snake_scalar_divisors(x, la)
+                moved = got != old
+                print(f"snake {tag} {(b, c, t)}: the plain formula with Python-number divisors differs "
+                      f"from the kernel (JAX's formula) in {int(moved.sum())} of {n} outputs, by up to "
+                      f"{float((got.float() - old.float()).abs().max()):.3g}; the plain version divides "
+                      "by device tensors and equals it")
+                del old, moved
+            with torch.no_grad():
+                ms_f, plain_f = timed_pair(f"snake {tag} {(b, c, t)}", lambda: snake_ops.snake(x, la))
+            bf, byf = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=False))
+
+            alpha = torch.exp(la).to(dtype).float()
+            xk, lk = x.clone().requires_grad_(), la.clone().requires_grad_()
+            dx, dla = torch.autograd.grad(snake_ops.snake(xk, lk), (xk, lk), g)
+            xp, lp = x.clone().requires_grad_(), la.clone().requires_grad_()
+            with _lib.plain_versions():
+                pdx, pdla = torch.autograd.grad(snake_ops.snake(xp, lp), (xp, lp), g)
+            del xk, lk, xp, lp
+            fdx, _ = snake_ops.snake_backward_reference(x, alpha, g)
+            again = snake_ops._backward_cuda(x, alpha, g, True, True)
+            once = snake_ops._backward_cuda(x, alpha, g, True, True)
+            err_dx = float((dx.float() - pdx.float()).abs().max())
+            err_dla = float((dla - pdla).abs().max())
+            top_dx, top_dla = float(pdx.float().abs().max()), float(pdla.abs().max())
+            tol_dx, tol_dla = ((SNAKE_DX_TOL * top_dx, SNAKE_DLA_TOL * top_dla) if tag == "f32"
+                               else (bf16_ulp(top_dx), bf16_ulp(top_dla)))
+            check(err_dx <= tol_dx and err_dla <= tol_dla,
+                  f"snake backward {tag} {(b, c, t)}: dx off plain by {err_dx:.3g} (bar {tol_dx:.3g}), "
+                  f"d log_alpha by {err_dla:.3g} (bar {tol_dla:.3g})")
+            check(torch.equal(dx, fdx), f"snake backward {tag} {(b, c, t)}: dx is not its formula's")
+            check(torch.equal(again[0], once[0]) and torch.equal(again[1], once[1]),
+                  f"snake backward {tag} {(b, c, t)}: two runs differ")
+            del fdx, again, once, pdx
+            ms_b, wall_b = backward_ms(x, la, g, plain=False)
+            plain_b, plain_wall_b = backward_ms(x, la, g, plain=True)
+            bb, byb = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=True))
+            print(f"snake backward {tag} {(b, c, t)}: device {ms_b:.4f} ms per call, plain (autograd) "
+                  f"{plain_b:.4f} ms; eager wall {wall_b:.4f} ms, plain {plain_wall_b:.4f} ms; bound "
+                  f"{bb:.4f} ms ({byb}); forward bound {bf:.4f} ms ({byf}); dx off plain {err_dx:.3g} "
+                  f"of {top_dx:.3g}, d log_alpha {err_dla:.3g} of {top_dla:.3g}; deterministic")
+            for k, v in dict(f=ms_f, fp=plain_f, b=ms_b, bp=plain_b).items():
+                acc[k] += count * v
+            counts += count * np.array([snake_ops.bound_counts(n, c, x.element_size(), backward=w)
+                                        for w in (False, True)])
+            acc["err_f"] = max(acc["err_f"], err_f)
+            acc["err_dx"] = max(acc["err_dx"], err_dx)
+            del x, g, got, want, dx
+        (acc["fb"], acc["fby"]), (acc["bb"], acc["bby"]) = (bound(*map(float, counts[w])) for w in (0, 1))
+        sums[tag] = acc
+        print(f"snake {tag}, the Snakes of one {BATCH} x {SECONDS} s encode: forward {acc['f']:.3f} ms "
+              f"(plain {acc['fp']:.3f}, bound {acc['fb']:.3f}); backward {acc['b']:.3f} ms (plain "
+              f"{acc['bp']:.3f}, bound {acc['bb']:.3f})")
+    f32 = sums["f32"]
+    # no single PyTorch call computes the Snake or its gradient
+    return {"snake": dict(max_abs_err=f32["err_f"], ms=f32["f"], plain_ms=f32["fp"], bound_ms=f32["fb"],
+                          bound_by=f32["fby"], library_ms=None),
+            "snake_backward": dict(max_abs_err=f32["err_dx"], ms=f32["b"], plain_ms=f32["bp"],
+                                   bound_ms=f32["bb"], bound_by=f32["bby"], library_ms=None)}
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1046,7 +1229,7 @@ def codec_latent(codec, dev, n_clips: int = 4, seconds: float = 2.0, steps: int 
     print(f"codec-latent run_combined ({n_clips} x {seconds} s, {len(suite)} attacks): wall {wall:.1f} s; "
           f"launches {launches}; {draws['draws']} draws bit for bit the replica, {dr.device_ms():.3f} ms "
           "of device time")
-    for n in ("rvq_encode_fused", "nearest_codebook", "jaxrand"):
+    for n in ("rvq_encode_fused", "nearest_codebook", "jaxrand", "snake", "snake_backward"):
         check(launches[n] > 0, f"codec-latent run: kernel {n} was not launched")
     errors = [r for r in rep.per_method + rep.summary if "error" in r]
     check(not errors, f"codec-latent run: error rows: {errors[:2]}")
@@ -1389,7 +1572,7 @@ def training_phase(dev, codec, tree: dict, sizes: dict | None = None,
         cli_runs(Path(d), cli_args or {})
     out["launches"] = {n: k.launches for n, k in _lib.KERNELS.items()}
     print(f"launches in the trainers' kernel steps: {out['launches']}")
-    for n in ("nearest_codebook", "jaxrand"):
+    for n in ("nearest_codebook", "jaxrand", "snake", "snake_backward"):
         check(out["launches"][n] > 0, f"training: {n} was not launched")
     return out
 
@@ -1852,7 +2035,9 @@ def main() -> int:
                 print(line.strip())
         _lib.library()
         print(f"built {path.relative_to(REPO)}")
-        check_jaxrand_build(path, log)
+        funcs = sass_functions(path)
+        check_jaxrand_build(funcs, log)
+        check_snake_build(funcs, log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -1862,6 +2047,7 @@ def main() -> int:
                 dev, random_quantizer(CodecConfig(), dev, 3), [(BATCH, 192), (3, 100), (BATCH, 188)],
                 "random tables"),
             "jaxrand": check_jaxrand(dev),
+            **check_snake(dev),
         }
 
     with phase("3 weights"):
@@ -2003,7 +2189,8 @@ def main() -> int:
               f"({BATCH * SECONDS / (ms16 / 1e3):.1f}x real time), float32 {ms_batch:.3f} ms; "
               f"bf16 codec encode {enc16:.3f} ms, float32 {stage_ms['codec encode']:.3f} ms")
         print(f"launches in the bf16 checks: {bf16_launches}")
-        check(bf16_launches["rvq_encode_fused"] > 0, "bf16 encode did not launch rvq_encode_fused")
+        for n in ("rvq_encode_fused", "snake"):
+            check(bf16_launches[n] > 0, f"bf16 encode did not launch {n}")
         del codec16
 
     with phase("10 codec-latent watermarks"):
@@ -2027,25 +2214,30 @@ def main() -> int:
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the draw kernel replaces XLA's fusion of jax.random (threefry, erf_inv) in
-    # the JAX package's noise draws, not a Pallas kernel
+    # the JAX package's noise draws, the Snake kernels XLA's fusion of
+    # Snake.__call__ and its autodiff, not Pallas kernels
     files = {"whiten_correlate": ("sswm.cu", "nawc_tpu/ops/sswm.py:179"),
              "nearest_codebook": ("rvq.cu", "nawc_tpu/ops/rvq.py:55"),
              "rvq_encode_fused": ("rvq_fused.cu", "nawc_tpu/ops/rvq_fused.py:107"),
-             "jaxrand": ("jaxrand.cu", "nawc_tpu/interp/uncertainty.py:28")}
+             "jaxrand": ("jaxrand.cu", "nawc_tpu/interp/uncertainty.py:28"),
+             "snake": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
+             "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42")}
+    on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"]}
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]
         check(r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] != 0,
               f"{n}: a time of 0 ms is a profiler window that lost its events: {r}")
-        main_path = n in MAIN_KERNELS
+        where = LAUNCHES_ON.get(n, "main path (phase 4)")
         kernels.append({
             "name": n, "route": "cuda", "source": f"nawc_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[n] if main_path else sweep_launches[n],
-            "launches_on": "main path (phase 4)" if main_path else "sweep (phase 8)",
+            "launches": on[where][n] if where in on else launches[n],
+            "launches_on": where,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "main_launches": launches[n],
             "sweep_launches": sweep_launches[n],
             "bf16_launches": bf16_launches[n],
             "codec_latent_launches": latent["launches"][n],

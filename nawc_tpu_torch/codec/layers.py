@@ -14,13 +14,12 @@ the whole block in bfloat16.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-_INV_PI = 1.0 / math.pi
+from ..ops.snake import sin2_periodic as _sin2_periodic  # noqa: F401  (kept under its old name)
+from ..ops.snake import snake
 
 
 def _conv(op, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *args) -> torch.Tensor:
@@ -35,34 +34,17 @@ def _conv(op, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *args) 
     return op(x, w, b, *args)
 
 
-def _sin2_periodic(z: torch.Tensor) -> torch.Tensor:
-    """sin(z)^2 by range reduction and a 7th-order Taylor polynomial, as the
-    JAX package computes it (its values, not ``torch.sin``'s: the
-    polynomial's sin is off by at most 1.6e-4 and its square by at most
-    3.1e-4, both at |u| = 0.5).  ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
-    zf = z.float()
-    u = zf * _INV_PI
-    u = u - torch.round(u)
-    p = u * math.pi
-    p2 = p * p
-    s = p * (1.0 - p2 / 6.0 * (1.0 - p2 / 20.0 * (1.0 - p2 / 42.0)))
-    return (s * s).to(z.dtype)
-
-
 class Snake(nn.Module):
-    """Snake activation: x + sin^2(alpha x)/alpha with per-channel alpha."""
+    """Snake activation: x + sin^2(alpha x)/alpha with per-channel alpha
+    (``ops.snake``: the kernel ``csrc/snake.cu`` on the card, forward and
+    backward; the plain version on the CPU)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.log_alpha = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        alpha = torch.exp(self.log_alpha).to(x.dtype)[None, :, None]
-        # alpha * x stays float32 in a bfloat16 Snake: XLA drops the product's
-        # rounding before the float32 range reduction, and the port follows
-        s2 = _sin2_periodic(alpha.float() * x.float()).to(x.dtype)
-        return x + s2 / (alpha + 1e-9)
+        return snake(x.contiguous(), self.log_alpha)
 
 
 class SameConv1d(nn.Conv1d):

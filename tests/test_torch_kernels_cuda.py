@@ -381,3 +381,119 @@ def test_jaxrand_normal_of_every_uniform_is_the_replica(dev):
     assert keyed._BITS_KERNEL.launches == before + 1 and got.device.type == "cuda"
     diff = _bits(got.cpu().numpy()) != _bits(jaxrand.normal_from_bits(bits))
     assert not diff.any(), f"{int(diff.sum())} of {diff.size} normals differ, first at {np.flatnonzero(diff)[:3]}"
+
+
+# ---------------------------------------------------------------- the Snake
+
+_ENCODER_SHAPES = [(16, 48, 96_000), (16, 96, 48_000), (16, 192, 12_000), (16, 384, 1_500),
+                   (16, 768, 188)]
+_ODD_SHAPES = [(2, 5, 1), (3, 7, 3), (4, 768, 188), (2, 3, 1001), (3, 1, 1001), (1, 1, 1)]
+
+
+def _snake_ops():
+    import sys
+
+    import nawc_tpu_torch.ops  # noqa: F401
+
+    return sys.modules["nawc_tpu_torch.ops.snake"]
+
+
+def _snake_case(shape, dtype, dev, seed=0, offset=0):
+    """x at 2 sigma (from element `offset` of a flat buffer, so that its
+    address need not be 16-byte aligned), log alpha at 0.3 sigma, g at 1."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    buf = torch.as_tensor(rng.standard_normal(n + offset) * 2, dtype=torch.float32).to(dev, dtype)
+    x = buf[offset:].view(shape)
+    la = torch.as_tensor(rng.standard_normal(shape[1]) * 0.3, dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32).to(dev, dtype)
+    return x, la, g
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [(s, 0) for s in _ENCODER_SHAPES + _ODD_SHAPES]
+                         + [((2, 3, 1001), 1), ((3, 7, 3), 3), ((4, 5, 188), 2)])
+def test_snake_forward_is_the_plain_version_bit_for_bit(dev, shape, offset, dtype):
+    """The plain version divides truly on the card too, so the kernel's
+    one-rounding steps give its values bit for bit, in both types."""
+    so = _snake_ops()
+    x, la, _ = _snake_case(shape, dtype, dev, offset=offset)
+    n = so._FORWARD.launches
+    got = so.snake(x, la)
+    torch.cuda.synchronize()
+    assert so._FORWARD.launches == n + 1 and got.dtype == dtype and got.shape == x.shape
+    want = so.snake_reference(x, la)
+    diff = got != want
+    assert not bool(diff.any()), (f"{int(diff.sum())} of {diff.numel()} differ, max "
+                                  f"{float((got.float() - want.float()).abs().max())}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [(s, 0) for s in _ENCODER_SHAPES[2:] + _ODD_SHAPES]
+                         + [((2, 3, 1001), 1), ((4, 5, 188), 2)])
+def test_snake_backward_against_plain_autograd(dev, shape, offset, dtype):
+    """dx and d log_alpha of the kernel against autograd of the plain
+    forward (float32: 1e-6 of the largest |dx|, 1e-5 relative; bfloat16:
+    one bfloat16 ulp of the largest of each), and dx bit for bit the
+    formula ``snake_backward_reference`` on the same inputs."""
+    so = _snake_ops()
+    x, la, g = _snake_case(shape, dtype, dev, seed=1, offset=offset)
+    xk, lk = x.clone().requires_grad_(), la.clone().requires_grad_()
+    n = so._BACKWARD.launches
+    dx, dla = torch.autograd.grad(so.snake(xk, lk), (xk, lk), g)
+    torch.cuda.synchronize()
+    assert so._BACKWARD.launches == n + 1 and dx.dtype == dtype and dla.dtype == torch.float32
+    xp, lp = x.clone().requires_grad_(), la.clone().requires_grad_()
+    want_dx, want_dla = torch.autograd.grad(so.snake_reference(xp, lp), (xp, lp), g)
+    err_dx = float((dx.float() - want_dx.float()).abs().max())
+    err_dla = float((dla - want_dla).abs().max())
+    top_dx, top_dla = float(want_dx.float().abs().max()), float(want_dla.abs().max())
+    if dtype == torch.float32:
+        assert err_dx <= 1e-6 * top_dx and err_dla <= 1e-5 * top_dla, (err_dx, top_dx, err_dla, top_dla)
+    else:
+        assert err_dx <= _bf16_ulp(top_dx) and err_dla <= _bf16_ulp(top_dla), (err_dx, top_dx, err_dla, top_dla)
+    fdx, _ = so.snake_backward_reference(x, torch.exp(la).to(dtype).float(), g)
+    assert torch.equal(dx, fdx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_snake_backward_is_deterministic(dev, dtype):
+    so = _snake_ops()
+    x, la, g = _snake_case((16, 48, 96_000), dtype, dev, seed=2)
+    alpha = torch.exp(la).to(dtype).float()
+    a = so._backward_cuda(x, alpha, g, True, True)
+    b = so._backward_cuda(x, alpha, g, True, True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+
+
+def test_snake_refuses_what_it_does_not_take(dev):
+    """A non-contiguous or float64 CUDA tensor raises; it never falls back."""
+    so = _snake_ops()
+    la = torch.zeros(3, device=dev)
+    n = so._FORWARD.launches
+    for bad in (torch.zeros(2, 8, 3, device=dev).transpose(1, 2),
+                torch.zeros(2, 3, 8, device=dev, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            so.snake(bad, la)
+    with pytest.raises(ValueError):
+        so.snake(torch.zeros(2, 3, 8, device=dev), torch.zeros(4, device=dev))
+    assert so._FORWARD.launches == n
+
+
+def test_snake_under_no_grad_launches_the_forward_only(dev):
+    so = _snake_ops()
+    x, la, g = _snake_case((2, 4, 500), torch.float32, dev)
+    la.requires_grad_()
+    f, b = so._FORWARD.launches, so._BACKWARD.launches
+    with torch.no_grad():
+        so.snake(x, la)
+    assert (so._FORWARD.launches, so._BACKWARD.launches) == (f + 1, b)
+    # x needs no gradient: the backward computes d log_alpha alone
+    (dla,) = torch.autograd.grad(so.snake(x, la), (la,), g)
+    assert (so._FORWARD.launches, so._BACKWARD.launches) == (f + 2, b + 1)
+    (want,) = torch.autograd.grad(so.snake_reference(x, la), (la,), g)
+    assert float((dla - want).abs().max()) <= 1e-5 * float(want.abs().max())
