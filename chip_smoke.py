@@ -12,7 +12,9 @@ Phases, each printing its seconds:
    ``-Xptxas -v`` reports; the draw kernel's and the Snake kernel's
    functions must have no stack frame and no spills, the draw's normal
    instantiation's SASS (by ``cuobjdump -sass``) no float64 conversion or
-   arithmetic, and the Snake functions' opcodes are printed;
+   arithmetic, and each Snake kernel's opcodes (the range checks, FCHK,
+   and the calls among them) and SASS instructions per element are
+   printed;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -32,11 +34,17 @@ Phases, each printing its seconds:
    attacks' uniform ranges, each with its device time, the replica's host
    time and the bound; and the normal draw's transform over its whole
    domain, all 2^23 uniforms, through the bits entry; and the Snake kernel
-   (``csrc/snake.cu``) at the five shapes of one encode in float32 and
-   bfloat16: the forward bit for bit the plain version, the backward's dx
-   and d log_alpha against autograd of the plain forward, dx bit for bit
-   its formula, two runs bit for bit, device and wall ms of each pass
-   beside the plain version's and the bound, and their sums over an encode;
+   (``csrc/snake.cu``): its divisions against ``__fdiv_rn`` (by 6, 20 and
+   42 over all 2^32 float32 patterns, by the per-channel den over all 2^32
+   numerators for 16 dens, over every den of [1, 2) against 2^16 seeded
+   numerators and over every bfloat16 pair, each count of differing
+   quotients 0, with its time), then both passes at the five shapes of one 16 x 4 s encode, of
+   the codec-latent embed's 4 x 2 s encode and of the trainers' 16 x 32768
+   encode, in float32 and bfloat16: the forward bit for bit the plain
+   version, the backward's dx and d log_alpha against autograd of the
+   plain forward, dx bit for bit its formula, two runs bit for bit, device
+   and wall ms of each pass beside the plain version's and the bound, and
+   their sums over each encode beside phase 1's instructions per element;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -195,6 +203,7 @@ from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm  # noqa: E402
 from nawc_tpu_torch.ops import jaxrand as keyed  # noqa: E402
 snake_ops = importlib.import_module("nawc_tpu_torch.ops.snake")  # the module; ops.snake is the op
 from nawc_tpu_torch.runtime import WatermarkService  # noqa: E402
+from nawc_tpu_torch.tools import snake_times  # noqa: E402
 from nawc_tpu_torch.train.adversarial import (  # noqa: E402
     decoder_only_tx, init_discriminators, make_gan_train_step)
 from nawc_tpu_torch.train.codec_train import (  # noqa: E402
@@ -623,12 +632,9 @@ def sass_opcode(line: str) -> str | None:
     return words[0] if words else None
 
 
-def sass_functions(lib: Path) -> dict[str, list[str]]:
-    """The built library's SASS (``cuobjdump -sass``, beside nvcc) -> each
-    function's opcodes."""
-    cuobjdump = Path(_lib.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
+def sass_functions(sass: str) -> dict[str, list[str]]:
+    """The built library's SASS (``cuobjdump -sass``) -> each function's
+    opcodes."""
     out = {}
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
@@ -746,38 +752,129 @@ def check_draw_pairs(got, want) -> dict:
 
 # ------------------------------------------------------------------ the Snake (phases 1, 2)
 
-# one 16 x 4 s encode at CodecConfig(): per encoder block 7 Snakes at its
-# (C, T), and the final one at (768, 188)
-SNAKE_SHAPES = ((BATCH, 48, 96_000, 7), (BATCH, 96, 48_000, 7), (BATCH, 192, 12_000, 7),
-                (BATCH, 384, 1_500, 7), (BATCH, 768, 188, 1))
+# one encode's Snakes at CodecConfig(): per encoder block 7 at its (C, T),
+# and the final one at (768, T / 512): the main path's 16 x 4 s (bench.py's
+# unpadded T), the codec-latent embed's 4 x 2 s (padded to the codec's
+# chunk, 49152 samples) and the trainers' 16 x 32768 crops
+SNAKE_SETS = {
+    f"{BATCH} x {SECONDS} s encode": ((BATCH, 48, 96_000, 7), (BATCH, 96, 48_000, 7),
+                                      (BATCH, 192, 12_000, 7), (BATCH, 384, 1_500, 7),
+                                      (BATCH, 768, 188, 1)),
+    "codec-latent 4 x 2 s encode": ((4, 48, 49_152, 7), (4, 96, 24_576, 7), (4, 192, 6_144, 7),
+                                    (4, 384, 768, 7), (4, 768, 96, 1)),
+    "trainers' 16 x 32768 encode": ((16, 48, 32_768, 7), (16, 96, 16_384, 7), (16, 192, 4_096, 7),
+                                    (16, 384, 512, 7), (16, 768, 64, 1)),
+}
 SNAKE_DX_TOL = 1e-6    # dx against plain autograd, of the largest |dx| (float32)
 SNAKE_DLA_TOL = 1e-5   # d log_alpha against plain autograd, relative (float32)
-
-
 def bf16_ulp(v: float) -> float:
     return 2.0 ** (np.floor(np.log2(v)) - 7)
 
 
-def check_snake_build(funcs: dict[str, list[str]], log: str) -> None:
+def check_snake_build(sass: str, log: str) -> dict[str, dict]:
     """Phase 1's checks of the Snake kernel: no stack frame and no spills in
-    its six functions (``-Xptxas -v``; only on a fresh build), and its
-    forward's SASS opcodes, read for the fused multiply-adds: the formula's
-    separate multiplies and adds are __fmul_rn / __fadd_rn, so an FFMA
-    there can only come from the IEEE divisions' own sequences."""
+    any function of ``snake.cu`` (``-Xptxas -v``; only on a fresh build),
+    and each of its six kernels' SASS (``snake_times.kernel_sass``): the
+    count of each opcode of interest (the range checks, FCHK, are the
+    per-channel divisions' IEEE fallbacks in the exact path; the divisions
+    by 6, 20 and 42 have none) and the instructions per element of its pass
+    loop.  -> ``kernel_sass`` of it."""
     props = ptxas_properties(log)
     mine = {n: v for n, v in props.items() if "snake_cu" in n}
     if log:
-        check(len(mine) == 6 and all(
+        check(len(mine) >= 10 and all(
             v.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
             for v in mine.values()), f"snake: ptxas reports {mine}")
-        print(f"snake ptxas: {mine}")
+        print(f"snake ptxas: {len(mine)} functions, 0-byte frames, no spills")
     else:
         print("snake ptxas: the library was built before this run; nvcc printed nothing")
-    kinds = ("FFMA", "FMUL", "FADD", "MUFU", "FRND", "FSETP", "CALL", "BSSY", "LDG", "STG")
-    for name, ops in funcs.items():
-        if "snake_" in name and "_kernel" in name:
-            counts = {k: sum(o == k or o.startswith(k + ".") for o in ops) for k in kinds}
-            print(f"snake SASS {name[:60]}: {len(ops)} instructions, {counts}")
+    per = snake_times.kernel_sass(sass, snake_times.vectors_of(REPO))
+    check(len(per) == 6 and all(c["per_element"] > 0 for c in per.values()),
+          f"snake: SASS kernels {per}")
+    for label, c in per.items():
+        print(f"snake SASS {label}: {c['instructions']} instructions, {c['per_element']} an element in "
+              "its pass loop; " + ", ".join(f"{k} {c[k]}" for k in snake_times.OPCODES))
+    return per
+
+
+def trained_dens() -> list[float]:
+    """The per-channel divisors of the trained codec's Snakes: the smallest,
+    median and largest exp(log_alpha) + 1e-9, in float32 and in bfloat16
+    rounding, as the kernel forms them."""
+    def leaves(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            elif k == "log_alpha":
+                yield np.asarray(v, np.float32).ravel()
+
+    la = torch.from_numpy(np.concatenate(list(leaves(load_params(CHECKPOINT)))))
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        den = (torch.exp(la).to(dtype).float() + torch.tensor(1e-9)).to(dtype).float()
+        v = den.sort().values
+        out += [float(v[0]), float(v[len(v) // 2]), float(v[-1])]
+    return out
+
+
+def check_snake_divisions(dev) -> None:
+    """The Snake kernel's divisions on the card against ``__fdiv_rn``: by 6,
+    20 and 42 over all 2^32 float32 patterns; by the per-channel den, in
+    the float32 kernels' sequence, over all 2^32 numerators for 16 dens
+    (the trained codec's smallest, median and largest in float32 and
+    bfloat16 rounding, and 10 seeded ones of exp(N(0, 1)), half rounded to
+    bfloat16) and over every den mantissa of [1, 2) against 2^16 seeded
+    numerators, and in the bfloat16 kernels' sequence over every bfloat16
+    den in [2^-20, 2^20] against all 2^16 bfloat16 numerators.  Every count
+    of differing quotients must be 0; prints the counts and the times."""
+    for d in (6, 20, 42):
+        t0 = time.perf_counter()
+        n = snake_ops.check_constant_division(d, dev)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(n["differ"] == 0, f"snake division by {d}: {n['differ']} of 2^32 patterns differ from "
+                                f"__fdiv_rn")
+        print(f"snake division by {d}: all {n['patterns']} float32 patterns equal __fdiv_rn "
+              f"({n['fast']} through fma(v, zh, RN(v zl)), the rest through the float64 product); that "
+              f"sequence alone would differ on {n['fast_alone_differ']} finite patterns, all with |v| <= "
+              f"{n['fast_alone_max']:.3g}; {ms:.1f} ms")
+    rng = np.random.default_rng(18)
+    seeded = np.exp(rng.standard_normal(10)).astype(np.float32)
+    seeded[5:] = torch.from_numpy(seeded[5:]).to(torch.bfloat16).float().numpy()
+    dens = torch.tensor(trained_dens() + seeded.tolist(), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    n = snake_ops.check_channel_division(dens)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(n["differ"] == 0 and n["pairs"] == 16 * 2**32,
+          f"snake division by den: {n['differ']} of {n['pairs']} quotients differ from __fdiv_rn")
+    print(f"snake division by den {[f'{v:.6g}' for v in dens.tolist()]}: all 2^32 numerators each, "
+          f"{n['pairs']} quotients equal __fdiv_rn ({n['fast']} through the Markstein sequence); "
+          f"{ms:.1f} ms")
+    mant = torch.arange(2**23, dtype=torch.int32, device=dev) | (127 << 23)
+    bits = (rng.integers(0, 2, 2**16, dtype=np.uint32) << np.uint32(31)
+            | rng.integers(127 - 80, 127 + 80, 2**16, dtype=np.uint32) << np.uint32(23)
+            | rng.integers(0, 2**23, 2**16, dtype=np.uint32))
+    nums = torch.from_numpy(bits.view(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    n = snake_ops.check_channel_division(mant.view(torch.float32), nums)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(n["differ"] == 0 and n["pairs"] == 2**39,
+          f"snake division by den in [1, 2): {n['differ']} of {n['pairs']} quotients differ")
+    print(f"snake division by every den in [1, 2) (2^23) against 2^16 seeded numerators: {n['pairs']} "
+          f"quotients equal __fdiv_rn ({n['fast']} through the Markstein sequence); {ms:.1f} ms")
+    every_bf16 = (torch.arange(2**16, dtype=torch.int32, device=dev) << 16).view(torch.float32)
+    bf16_dens = every_bf16[(every_bf16 >= 2.0**-20) & (every_bf16 <= 2.0**20)].contiguous()
+    t0 = time.perf_counter()
+    n = snake_ops.check_channel_division(bf16_dens, every_bf16, bfloat16=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(n["differ"] == 0 and n["pairs"] == bf16_dens.numel() * 2**16,
+          f"snake bfloat16 division by den: {n['differ']} of {n['pairs']} quotients differ")
+    print(f"snake bfloat16 division by every bfloat16 den in [2^-20, 2^20] ({bf16_dens.numel()}) against "
+          f"all 2^16 bfloat16 numerators: {n['pairs']} quotients equal __fdiv_rn ({n['fast']} through "
+          f"RN(v yn) and the Markstein step); {ms:.1f} ms")
 
 
 def snake_scalar_divisors(x: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
@@ -816,86 +913,107 @@ def backward_ms(x: torch.Tensor, la: torch.Tensor, g: torch.Tensor, plain: bool)
     return device_ms(fn), wall_ms(fn, iters=10)
 
 
-def check_snake(dev) -> dict:
-    """The Snake kernels against their plain versions at the five shapes of
-    one 16 x 4 s encode, in float32 and bfloat16: the forward bit for bit;
-    the backward's dx and d log_alpha against autograd of the plain forward
-    (float32 by SNAKE_DX_TOL and SNAKE_DLA_TOL, bfloat16 within one bfloat16
-    ulp of the largest of each), dx bit for bit the kernel's formula
-    ``snake_backward_reference`` on the card, and two runs bit for bit.  Each
-    with device ms per call, plain ms, eager wall and the bound; the sums
-    over one encode (7 Snakes a block) against its bound.
-    -> {"snake": record, "snake_backward": record}."""
-    sums = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        acc = dict(f=0.0, fp=0.0, b=0.0, bp=0.0, err_f=0.0, err_dx=0.0)
-        counts = np.zeros((2, 2))  # (forward, backward) x (bytes, operations) of one encode
-        for i, (b, c, t, count) in enumerate(SNAKE_SHAPES):
-            x, la, g = snake_case(b, c, t, dtype, dev, seed=20 + i)
-            n = x.numel()
-            with torch.no_grad():
-                got = snake_ops.snake(x, la)
-                want = snake_ops.snake_reference(x, la)
-            differ = int((got != want).sum())
-            err_f = float((got.float() - want.float()).abs().max())
-            check(differ == 0, f"snake {tag} {(b, c, t)}: {differ} of {n} outputs differ from plain "
-                               f"(max {err_f:.3g})")
-            if i == 0:
-                with torch.no_grad():
-                    old = snake_scalar_divisors(x, la)
-                moved = got != old
-                print(f"snake {tag} {(b, c, t)}: the plain formula with Python-number divisors differs "
-                      f"from the kernel (JAX's formula) in {int(moved.sum())} of {n} outputs, by up to "
-                      f"{float((got.float() - old.float()).abs().max()):.3g}; the plain version divides "
-                      "by device tensors and equals it")
-                del old, moved
-            with torch.no_grad():
-                ms_f, plain_f = timed_pair(f"snake {tag} {(b, c, t)}", lambda: snake_ops.snake(x, la))
-            bf, byf = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=False))
+def check_snake_shape(b: int, c: int, t: int, dtype, dev, seed: int, old_formula: bool) -> dict:
+    """One shape's checks and times (see ``check_snake``) -> {"f", "fp", "b",
+    "bp": device ms per call of the forward, its plain version, the
+    backward and autograd's of the plain forward; "err_f", "err_dx"}."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    x, la, g = snake_case(b, c, t, dtype, dev, seed)
+    n = x.numel()
+    with torch.no_grad():
+        got = snake_ops.snake(x, la)
+        want = snake_ops.snake_reference(x, la)
+    differ = int((got != want).sum())
+    err_f = float((got.float() - want.float()).abs().max())
+    check(differ == 0, f"snake {tag} {(b, c, t)}: {differ} of {n} outputs differ from plain "
+                       f"(max {err_f:.3g})")
+    if old_formula:
+        with torch.no_grad():
+            old = snake_scalar_divisors(x, la)
+        moved = got != old
+        print(f"snake {tag} {(b, c, t)}: the plain formula with Python-number divisors differs "
+              f"from the kernel (JAX's formula) in {int(moved.sum())} of {n} outputs, by up to "
+              f"{float((got.float() - old.float()).abs().max()):.3g}; the plain version divides "
+              "by device tensors and equals it")
+        del old, moved
+    with torch.no_grad():
+        ms_f, plain_f = timed_pair(f"snake {tag} {(b, c, t)}", lambda: snake_ops.snake(x, la))
+    bf, byf = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=False))
 
-            alpha = torch.exp(la).to(dtype).float()
-            xk, lk = x.clone().requires_grad_(), la.clone().requires_grad_()
-            dx, dla = torch.autograd.grad(snake_ops.snake(xk, lk), (xk, lk), g)
-            xp, lp = x.clone().requires_grad_(), la.clone().requires_grad_()
-            with _lib.plain_versions():
-                pdx, pdla = torch.autograd.grad(snake_ops.snake(xp, lp), (xp, lp), g)
-            del xk, lk, xp, lp
-            fdx, _ = snake_ops.snake_backward_reference(x, alpha, g)
-            again = snake_ops._backward_cuda(x, alpha, g, True, True)
-            once = snake_ops._backward_cuda(x, alpha, g, True, True)
-            err_dx = float((dx.float() - pdx.float()).abs().max())
-            err_dla = float((dla - pdla).abs().max())
-            top_dx, top_dla = float(pdx.float().abs().max()), float(pdla.abs().max())
-            tol_dx, tol_dla = ((SNAKE_DX_TOL * top_dx, SNAKE_DLA_TOL * top_dla) if tag == "f32"
-                               else (bf16_ulp(top_dx), bf16_ulp(top_dla)))
-            check(err_dx <= tol_dx and err_dla <= tol_dla,
-                  f"snake backward {tag} {(b, c, t)}: dx off plain by {err_dx:.3g} (bar {tol_dx:.3g}), "
-                  f"d log_alpha by {err_dla:.3g} (bar {tol_dla:.3g})")
-            check(torch.equal(dx, fdx), f"snake backward {tag} {(b, c, t)}: dx is not its formula's")
-            check(torch.equal(again[0], once[0]) and torch.equal(again[1], once[1]),
-                  f"snake backward {tag} {(b, c, t)}: two runs differ")
-            del fdx, again, once, pdx
-            ms_b, wall_b = backward_ms(x, la, g, plain=False)
-            plain_b, plain_wall_b = backward_ms(x, la, g, plain=True)
-            bb, byb = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=True))
-            print(f"snake backward {tag} {(b, c, t)}: device {ms_b:.4f} ms per call, plain (autograd) "
-                  f"{plain_b:.4f} ms; eager wall {wall_b:.4f} ms, plain {plain_wall_b:.4f} ms; bound "
-                  f"{bb:.4f} ms ({byb}); forward bound {bf:.4f} ms ({byf}); dx off plain {err_dx:.3g} "
-                  f"of {top_dx:.3g}, d log_alpha {err_dla:.3g} of {top_dla:.3g}; deterministic")
-            for k, v in dict(f=ms_f, fp=plain_f, b=ms_b, bp=plain_b).items():
-                acc[k] += count * v
-            counts += count * np.array([snake_ops.bound_counts(n, c, x.element_size(), backward=w)
-                                        for w in (False, True)])
-            acc["err_f"] = max(acc["err_f"], err_f)
-            acc["err_dx"] = max(acc["err_dx"], err_dx)
-            del x, g, got, want, dx
-        (acc["fb"], acc["fby"]), (acc["bb"], acc["bby"]) = (bound(*map(float, counts[w])) for w in (0, 1))
-        sums[tag] = acc
-        print(f"snake {tag}, the Snakes of one {BATCH} x {SECONDS} s encode: forward {acc['f']:.3f} ms "
-              f"(plain {acc['fp']:.3f}, bound {acc['fb']:.3f}); backward {acc['b']:.3f} ms (plain "
-              f"{acc['bp']:.3f}, bound {acc['bb']:.3f})")
-    f32 = sums["f32"]
+    alpha = torch.exp(la).to(dtype).float()
+    xk, lk = x.clone().requires_grad_(), la.clone().requires_grad_()
+    dx, dla = torch.autograd.grad(snake_ops.snake(xk, lk), (xk, lk), g)
+    xp, lp = x.clone().requires_grad_(), la.clone().requires_grad_()
+    with _lib.plain_versions():
+        pdx, pdla = torch.autograd.grad(snake_ops.snake(xp, lp), (xp, lp), g)
+    del xk, lk, xp, lp
+    fdx, _ = snake_ops.snake_backward_reference(x, alpha, g)
+    again = snake_ops._backward_cuda(x, alpha, g, True, True)
+    once = snake_ops._backward_cuda(x, alpha, g, True, True)
+    only_dx, _ = snake_ops._backward_cuda(x, alpha, g, True, False)
+    err_dx = float((dx.float() - pdx.float()).abs().max())
+    err_dla = float((dla - pdla).abs().max())
+    top_dx, top_dla = float(pdx.float().abs().max()), float(pdla.abs().max())
+    tol_dx, tol_dla = ((SNAKE_DX_TOL * top_dx, SNAKE_DLA_TOL * top_dla) if tag == "f32"
+                       else (bf16_ulp(top_dx), bf16_ulp(top_dla)))
+    check(err_dx <= tol_dx and err_dla <= tol_dla,
+          f"snake backward {tag} {(b, c, t)}: dx off plain by {err_dx:.3g} (bar {tol_dx:.3g}), "
+          f"d log_alpha by {err_dla:.3g} (bar {tol_dla:.3g})")
+    check(torch.equal(dx, fdx) and torch.equal(only_dx, fdx),
+          f"snake backward {tag} {(b, c, t)}: dx is not its formula's")
+    check(torch.equal(again[0], once[0]) and torch.equal(again[1], once[1]),
+          f"snake backward {tag} {(b, c, t)}: two runs differ")
+    del fdx, again, once, only_dx, pdx
+    ms_b, wall_b = backward_ms(x, la, g, plain=False)
+    plain_b, plain_wall_b = backward_ms(x, la, g, plain=True)
+    bb, byb = bound(*snake_ops.bound_counts(n, c, x.element_size(), backward=True))
+    print(f"snake backward {tag} {(b, c, t)}: device {ms_b:.4f} ms per call, plain (autograd) "
+          f"{plain_b:.4f} ms; eager wall {wall_b:.4f} ms, plain {plain_wall_b:.4f} ms; bound "
+          f"{bb:.4f} ms ({byb}); forward bound {bf:.4f} ms ({byf}); dx off plain {err_dx:.3g} "
+          f"of {top_dx:.3g}, d log_alpha {err_dla:.3g} of {top_dla:.3g}; deterministic")
+    return dict(f=ms_f, fp=plain_f, b=ms_b, bp=plain_b, err_f=err_f, err_dx=err_dx)
+
+
+def check_snake(dev, sass: dict[str, dict]) -> dict:
+    """The Snake kernel's divisions against ``__fdiv_rn`` over their whole
+    domains (``check_snake_divisions``), then the kernels against their
+    plain versions at the shapes of the encodes of ``SNAKE_SETS``, in
+    float32 and bfloat16: the forward bit for bit; the backward's dx and d
+    log_alpha against autograd of the plain forward (float32 by
+    SNAKE_DX_TOL and SNAKE_DLA_TOL, bfloat16 within one bfloat16 ulp of the
+    largest of each), dx bit for bit the kernel's formula
+    ``snake_backward_reference`` on the card (with d alpha wanted and
+    not), and two runs bit for bit.  Each with device ms per call, plain
+    ms, eager wall and the bound; per encode the sums (7 Snakes a block)
+    against their bounds, beside phase 1's instructions per element.
+    -> {"snake": record, "snake_backward": record} of the main path's
+    float32 encode."""
+    check_snake_divisions(dev)
+    sums = {}
+    for s_i, (label, shapes) in enumerate(SNAKE_SETS.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            acc = dict(f=0.0, fp=0.0, b=0.0, bp=0.0, err_f=0.0, err_dx=0.0)
+            counts = np.zeros((2, 2))  # (forward, backward) x (bytes, operations) of one encode
+            for i, (b, c, t, count) in enumerate(shapes):
+                r = check_snake_shape(b, c, t, dtype, dev, seed=20 + 10 * s_i + i,
+                                      old_formula=(s_i, i) == (0, 0))
+                for k in ("f", "fp", "b", "bp"):
+                    acc[k] += count * r[k]
+                for k in ("err_f", "err_dx"):
+                    acc[k] = max(acc[k], r[k])
+                counts += count * np.array([snake_ops.bound_counts(b * c * t, c, dtype.itemsize,
+                                                                   backward=w) for w in (False, True)])
+            (acc["fb"], acc["fby"]), (acc["bb"], acc["bby"]) = (bound(*map(float, counts[w]))
+                                                                for w in (0, 1))
+            sums[(label, tag)] = acc
+            per = {k: sass[f"{d} {tag}"]["per_element"] for k, d in (("f", "forward"), ("b", "backward"))}
+            print(f"snake {tag}, the Snakes of one {label}: forward {acc['f']:.3f} ms (plain "
+                  f"{acc['fp']:.3f}, bound {acc['fb']:.3f}, {acc['fb'] / acc['f']:.0%} of it; "
+                  f"{per['f']:.1f} SASS instructions an element); backward {acc['b']:.3f} ms (plain "
+                  f"{acc['bp']:.3f}, bound {acc['bb']:.3f}, {acc['bb'] / acc['b']:.0%}; "
+                  f"{per['b']:.1f} SASS instructions an element)")
+    f32 = sums[(next(iter(SNAKE_SETS)), "f32")]
     # no single PyTorch call computes the Snake or its gradient
     return {"snake": dict(max_abs_err=f32["err_f"], ms=f32["f"], plain_ms=f32["fp"], bound_ms=f32["fb"],
                           bound_by=f32["fby"], library_ms=None),
@@ -2035,9 +2153,10 @@ def main() -> int:
                 print(line.strip())
         _lib.library()
         print(f"built {path.relative_to(REPO)}")
-        funcs = sass_functions(path)
+        text = snake_times.sass_text(path, _lib.find_nvcc())
+        funcs = sass_functions(text)
         check_jaxrand_build(funcs, log)
-        check_snake_build(funcs, log)
+        sass = check_snake_build(text, log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -2047,7 +2166,7 @@ def main() -> int:
                 dev, random_quantizer(CodecConfig(), dev, 3), [(BATCH, 192), (3, 100), (BATCH, 188)],
                 "random tables"),
             "jaxrand": check_jaxrand(dev),
-            **check_snake(dev),
+            **check_snake(dev, sass),
         }
 
     with phase("3 weights"):

@@ -10,6 +10,12 @@ PyTorch versions.
 * :func:`snake` runs the kernel on a CUDA tensor, through
   :class:`_SnakeFunction` where a gradient is wanted (the backward kernel
   keeps only x and alpha), and :func:`snake_reference` on the CPU.
+* :func:`check_constant_division` and :func:`check_channel_division` run
+  the kernel's division functions on the card against the IEEE division
+  (``__fdiv_rn``) and count the quotients that differ: the whole-domain
+  proof that the kernel's multiply-and-correct sequences round as a true
+  division (``chip_smoke.py`` phase 2).  They count no launch: no path
+  calls them.
 
 The plain version divides by 0-dim tensors of the input's device, not by
 Python numbers: on the card eager PyTorch multiplies by a rounded
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -38,6 +45,15 @@ _BACKWARD = _lib.register(_lib.CudaKernel(
 _SCRATCH = _lib.CEntry(
     "snake_backward scratch", "nawc_snake_backward_scratch",
     [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_size_t)],
+)
+_CHECK_CONST = _lib.CEntry(
+    "snake division check", "nawc_snake_check_const",
+    [ctypes.c_int] + [ctypes.c_ulonglong] * 3 + [ctypes.c_void_p] * 2,
+)
+_CHECK_DEN = _lib.CEntry(
+    "snake channel division check", "nawc_snake_check_den",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int]
+    + [ctypes.c_void_p] * 2,
 )
 
 _INV_PI = 1.0 / math.pi
@@ -176,7 +192,9 @@ def _backward_cuda(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor, need_x
     if g.shape != x.shape:
         raise ValueError(f"snake_backward: gradient {tuple(g.shape)} for x {tuple(x.shape)}")
     dx = torch.empty_like(x) if need_x else None
-    dalpha = torch.zeros(c, device=x.device, dtype=torch.float32) if need_alpha else None
+    # the reduction writes every channel; an empty x launches nothing
+    alloc = torch.empty if x.numel() else torch.zeros
+    dalpha = alloc(c, device=x.device, dtype=torch.float32) if need_alpha else None
     if x.numel() and (need_x or need_alpha):
         with torch.cuda.device(x.device):
             scratch = None
@@ -225,6 +243,46 @@ def snake(x: torch.Tensor, log_alpha: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
         return _SnakeFunction.apply(x, alpha)
     return _forward_cuda(x, alpha)
+
+
+def check_constant_division(d: int, device, first: int = 0, step: int = 1,
+                            count: int = 2**32) -> dict[str, float]:
+    """The kernel's division by the constant ``d`` (6, 20 or 42) on the card
+    over the float32 bit patterns ``first + i * step`` (mod 2^32), i <
+    count, against ``__fdiv_rn`` -> {"differ": patterns where the kernel's
+    quotient differs (two NaNs agree), "fast": patterns that take the
+    two-constant sequence, "fast_alone_differ": finite patterns where that
+    sequence alone would differ, "fast_alone_max": the largest |v| among
+    those, "patterns": count}."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"check_constant_division runs on the card, not on {dev}")
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _CHECK_CONST(d, first, step, count, _lib.ptr(out), _lib.stream(out))
+    n = out.cpu().tolist()
+    top = struct.unpack("<f", struct.pack("<I", n[3]))[0]
+    return dict(differ=n[0], fast=n[1], fast_alone_differ=n[2], fast_alone_max=top, patterns=count)
+
+
+def check_channel_division(dens: torch.Tensor, nums: torch.Tensor | None = None,
+                           bfloat16: bool = False) -> dict[str, int]:
+    """The kernel's division by the per-channel ``a + 1e-9`` on the card:
+    every value of ``dens`` (float32, on the card) against the numerators
+    ``nums`` (float32, on the card) or, where None, against all 2^32 float32
+    bit patterns, each pair against ``__fdiv_rn``, by the float32 kernels'
+    sequence or, with ``bfloat16``, the bfloat16 kernels' (whose dens and
+    numerators are bfloat16 values) -> {"differ": pairs whose quotients
+    differ (two NaNs agree), "fast": pairs that take the Markstein
+    sequence, "pairs": the pairs}."""
+    _lib.check_cuda_f32("check_channel_division", dens, *(() if nums is None else (nums,)))
+    out = torch.zeros(4, dtype=torch.int64, device=dens.device)
+    with torch.cuda.device(dens.device):
+        _CHECK_DEN(_lib.ptr(dens), dens.numel(), _NULL if nums is None else _lib.ptr(nums),
+                   2**32 if nums is None else nums.numel(), 2 if bfloat16 else 4, _lib.ptr(out),
+                   _lib.stream(out))
+    n = out.cpu().tolist()
+    return dict(differ=n[0], fast=n[1], pairs=n[2])
 
 
 def bound_counts(n: int, c: int, esize: int, backward: bool) -> tuple[float, float]:

@@ -65,6 +65,22 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def fma_once(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once: the product is exact in float64,
+    the sum is rounded to odd in float64 (its exact error by TwoSum), then
+    to nearest float32, which rounds the exact value once (Boldo and
+    Melquiond: round-to-odd with 53 >= 24 + 2 bits; a subnormal float32
+    result keeps fewer bits, so it holds there too)."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (np.asarray(s).view(np.int64) & 1) == 0
+    toward = np.nextafter(s, np.where(err > 0, np.inf, -np.inf))
+    return np.where((err != 0) & even, toward, s).astype(np.float32)
+
+
 def assert_codes_match(got, want, z_e=None, codebook=None) -> int:
     """Codes equal, except where the reference's top-2 cosine margin is
     below 1e-4 (needs the projected frames z_e and the codebook).

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import nawc_tpu.attacks.dsp as jax_dsp
-from _torch_port import t
+from _torch_port import fma_once as _fma_once, t
 from nawc_tpu.interp import latent_pca as jl
 from nawc_tpu.interp import uncertainty as juq
 from nawc_tpu.train import wm_train as jwt
@@ -121,21 +121,6 @@ def _normals_of_every_input() -> np.ndarray:
     """The replica's normal of each of the 2^23 inputs, in chunks of 2^21."""
     return np.concatenate([jaxrand.normal_from_bits(_ALL_BITS[i:i + 2**21])
                            for i in range(0, _ALL_BITS.size, 2**21)])
-
-
-def _fma_once(a, b, c) -> np.ndarray:
-    """float32 ``a * b + c`` rounded once: the product is exact in float64,
-    the sum is rounded to odd in float64 (its exact error by TwoSum), then
-    to nearest float32, which rounds the exact value once (Boldo and
-    Melquiond: round-to-odd with 53 >= 24 + 2 bits)."""
-    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
-    c = np.asarray(c, np.float64)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (np.asarray(s).view(np.int64) & 1) == 0
-    toward = np.nextafter(s, np.where(err > 0, np.inf, -np.inf))
-    return np.where((err != 0) & even, toward, s).astype(np.float32)
 
 
 def test_fma_once_rounds_once_where_float64_rounds_twice():

@@ -388,6 +388,10 @@ def test_jaxrand_normal_of_every_uniform_is_the_replica(dev):
 _ENCODER_SHAPES = [(16, 48, 96_000), (16, 96, 48_000), (16, 192, 12_000), (16, 384, 1_500),
                    (16, 768, 188)]
 _ODD_SHAPES = [(2, 5, 1), (3, 7, 3), (4, 768, 188), (2, 3, 1001), (3, 1, 1001), (1, 1, 1)]
+# short rows, one warp each: the codec-latent embed's last Snake, the
+# trainers' and a mid-encoder one, at offsets that misalign the rows
+_SHORT_ROWS = [((4, 768, 94), 0), ((4, 768, 94), 1), ((16, 768, 64), 3), ((3, 384, 750), 0),
+               ((3, 384, 750), 5)]
 
 
 def _snake_ops():
@@ -416,7 +420,7 @@ def _bf16_ulp(v: float) -> float:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,offset", [(s, 0) for s in _ENCODER_SHAPES + _ODD_SHAPES]
-                         + [((2, 3, 1001), 1), ((3, 7, 3), 3), ((4, 5, 188), 2)])
+                         + [((2, 3, 1001), 1), ((3, 7, 3), 3), ((4, 5, 188), 2)] + _SHORT_ROWS)
 def test_snake_forward_is_the_plain_version_bit_for_bit(dev, shape, offset, dtype):
     """The plain version divides truly on the card too, so the kernel's
     one-rounding steps give its values bit for bit, in both types."""
@@ -434,7 +438,7 @@ def test_snake_forward_is_the_plain_version_bit_for_bit(dev, shape, offset, dtyp
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,offset", [(s, 0) for s in _ENCODER_SHAPES[2:] + _ODD_SHAPES]
-                         + [((2, 3, 1001), 1), ((4, 5, 188), 2)])
+                         + [((2, 3, 1001), 1), ((4, 5, 188), 2)] + _SHORT_ROWS)
 def test_snake_backward_against_plain_autograd(dev, shape, offset, dtype):
     """dx and d log_alpha of the kernel against autograd of the plain
     forward (float32: 1e-6 of the largest |dx|, 1e-5 relative; bfloat16:
@@ -461,13 +465,58 @@ def test_snake_backward_against_plain_autograd(dev, shape, offset, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_snake_backward_is_deterministic(dev, dtype):
+@pytest.mark.parametrize("shape,offset", [((16, 48, 96_000), 0)] + _SHORT_ROWS[1:3])
+def test_snake_backward_is_deterministic(dev, shape, offset, dtype):
+    """Two runs give the same dx and d alpha bits; dx alone (d alpha not
+    wanted: the other instantiation) is the same dx."""
     so = _snake_ops()
-    x, la, g = _snake_case((16, 48, 96_000), dtype, dev, seed=2)
+    x, la, g = _snake_case(shape, dtype, dev, seed=2, offset=offset)
     alpha = torch.exp(la).to(dtype).float()
     a = so._backward_cuda(x, alpha, g, True, True)
     b = so._backward_cuda(x, alpha, g, True, True)
+    only_dx, none = so._backward_cuda(x, alpha, g, True, False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+    assert torch.equal(only_dx, a[0]) and none is None
+
+
+def test_snake_backward_of_an_empty_batch(dev):
+    """No launch for an empty activation: d alpha is zeros, not the
+    uninitialised memory the kernel would otherwise overwrite."""
+    so = _snake_ops()
+    x = torch.zeros(0, 3, 8, device=dev)
+    n = so._BACKWARD.launches
+    dx, dalpha = so._backward_cuda(x, torch.ones(3, device=dev), x, True, True)
+    assert so._BACKWARD.launches == n and dx.shape == x.shape and torch.equal(dalpha, torch.zeros(3, device=dev))
+
+
+@pytest.mark.parametrize("d", [6, 20, 42])
+def test_snake_division_check_on_a_strided_subset(dev, d):
+    """The kernel's division by d, through its check entry, over 2^24
+    float32 patterns 257 apart (every binade's share, subnormals, zeros,
+    infinities and NaNs among them), equals __fdiv_rn; the two-constant
+    sequence alone differs only below 2^-94, where the guard hands over."""
+    so = _snake_ops()
+    n = so.check_constant_division(d, dev, first=12345, step=257, count=2**24)
+    torch.cuda.synchronize()
+    assert n["differ"] == 0 and n["fast"] > 2**23, n
+    assert n["fast_alone_max"] < 2.0**-94, n
+
+
+def test_snake_channel_division_check(dev):
+    """The kernel's division by a + 1e-9 through its check entry equals
+    __fdiv_rn over all 2^32 numerators for three dens, one of them outside
+    the Markstein sequence's range (the IEEE fallback), and the bfloat16
+    kernels' sequence over all bfloat16 numerators for four bfloat16 dens."""
+    so = _snake_ops()
+    dens = torch.tensor([1.0 + 1e-9, 0.7071068, 2.0**-21], device=dev)
+    n = so.check_channel_division(dens)
+    torch.cuda.synchronize()
+    assert n["differ"] == 0 and n["pairs"] == 3 * 2**32 and 0 < n["fast"] < 2 * 2**32, n
+    every_bf16 = (torch.arange(2**16, dtype=torch.int32, device=dev) << 16).view(torch.float32)
+    dens = torch.tensor([1.0, 0.70703125, 3.40625, 2.0**-21], device=dev)  # bfloat16 values
+    n = so.check_channel_division(dens, every_bf16, bfloat16=True)
+    torch.cuda.synchronize()
+    assert n["differ"] == 0 and n["pairs"] == 4 * 2**16 and n["fast"] > 0, n
 
 
 def test_snake_refuses_what_it_does_not_take(dev):
