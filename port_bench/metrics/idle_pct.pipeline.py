@@ -1,0 +1,9 @@
+"""Share of the profiled window of pipeline calls in which no device
+operation runs."""
+
+
+def read(rec):
+    prof = rec.get("profile")
+    if not prof or prof["busy_s"] <= 0 or prof.get("unit") != "call" or prof["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - prof["busy_s"] / prof["window_s"])

@@ -1,0 +1,16 @@
+"""The Snake kernels' share of their byte bound in the codec-latent embed:
+the bytes the encoder's Snakes need per Adam step, forward and backward
+without d alpha (the codec is frozen), at 3.35 TB/s, over their device
+time per step in the profiled window."""
+
+from port_bench import counts
+
+
+def read(rec):
+    prof = rec.get("profile")
+    if not prof or prof.get("unit") != "step" or "snake_bytes" not in rec.get("work", {}):
+        return None
+    t = sum(d for n, _, d in prof["ops"] if "snake_" in n) / 1e6
+    if t <= 0:
+        return None
+    return 100.0 * rec["work"]["snake_bytes"] / counts.PEAK_BYTES_PER_S / (t / prof["units"])
