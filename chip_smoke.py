@@ -151,9 +151,10 @@ Phases, each printing its seconds:
    over the trained level-0 codebook equal to ``nearest_codebook``, and the
    shard combine over 2, 4 and 8 slices of it (each slice through the
    lookup kernel) equal to the whole lookup but at near-ties; every sswm
-   and lookup call held against plain, both kernels launched; a
-   ``StageTimer`` summary and one ``trace()`` of the sharded evaluation,
-   reporting whether the trace names the kernels.
+   and lookup call held against plain, both kernels launched; each
+   stage's device ms from the recorder's spans (``utils/profiling``) and
+   one ``trace()`` of the sharded evaluation, reporting whether the trace
+   names the kernels and the program's spans.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -2010,16 +2011,19 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
     data-parallel codec train step against the meshless step from the same
     state, the tensor-parallel lookup of the level-0 codebook, and the
     combine over 2, 4 and 8 slices of that codebook in one process; every
-    kernel call held against plain; a StageTimer summary and one trace of
-    the sharded evaluation."""
+    kernel call held against plain; each stage's device ms from the
+    recorder's spans and one trace of the sharded evaluation."""
     import torch.distributed as dist
 
     from nawc_tpu_torch.parallel import combine_shards, make_mesh, make_sharded_eval, tp_nearest_codebook
     from nawc_tpu_torch.parallel import tp as tp_module
-    from nawc_tpu_torch.utils.profiling import StageTimer, trace
+    from nawc_tpu_torch.utils import profiling
 
     marked_e, presence_e, bits_e = entry_out
-    timer = StageTimer()
+
+    def stage(name: str):
+        return profiling.annotate(name, dev)
+
     out: dict = {}
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
@@ -2029,12 +2033,14 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
         run = make_sharded_eval(codec, wm, mesh)
         run.gather(*run(wav, msg))  # cuFFT's, cuDNN's and NCCL's warm-up
         _lib.reset_launches()
+        profiling.snapshot()
+        profiling.enable()
         with Recorder(ss_module, "whiten_correlate") as sw, Recorder(codec_model, "nearest_codebook") as lk:
-            with timer.stage("sharded eval (16 x 4 s)") as box:
-                box["result"] = shards = run.gather(*run(wav, msg))
+            with stage("sharded eval (16 x 4 s)"):
+                shards = run.gather(*run(wav, msg))
         marked, attacked, presence, bits = shards
-        with timer.stage("codec round-trip (entry's)") as box:
-            box["result"] = attacked_e = codec_roundtrip(codec, marked_e, in_sr=wm.sample_rate)
+        with stage("codec round-trip (entry's)"):
+            attacked_e = codec_roundtrip(codec, marked_e, in_sr=wm.sample_rate)
         for label, a, b in [("marked", marked, marked_e), ("attacked", attacked, attacked_e),
                             ("presence", presence, presence_e), ("bits", bits, bits_e)]:
             check(torch.equal(a, b), f"sharded eval: {label} differs from the entry's by "
@@ -2049,10 +2055,10 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
         n, samples = train_batch
         w = torch.as_tensor(np.stack(speech_clips(n, samples / SR, SR, seed=19)), device=dev)
         with Recorder(codec_model, "nearest_codebook", clone=True) as lt:
-            with timer.stage("codec step, meshless") as box:
-                box["result"] = want = make_codec_train_step(CodecConfig())(twin, w)
-            with timer.stage("codec step, mesh (DDP)") as box:
-                box["result"] = got = make_codec_train_step(CodecConfig(), mesh=mesh)(state, w)
+            with stage("codec step, meshless"):
+                want = make_codec_train_step(CodecConfig())(twin, w)
+            with stage("codec step, mesh (DDP)"):
+                got = make_codec_train_step(CodecConfig(), mesh=mesh)(state, w)
         del twin, state, model
         for k, v in want.items():
             if k.startswith("usage_"):
@@ -2068,18 +2074,18 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
         z = next(a[0] for a, _ in lk.calls if a[1].data_ptr() == cb.data_ptr())
         with Recorder(tp_module, "nearest_codebook") as tk:
             whole = rvq.nearest_codebook(z, cb)
-            with timer.stage("tp lookup, level 0") as box:
-                box["result"] = codes = tp_nearest_codebook(z, cb, mesh)
+            with stage("tp lookup, level 0"):
+                codes = tp_nearest_codebook(z, cb, mesh)
             check(torch.equal(codes, whole), "tp_nearest_codebook differs from nearest_codebook")
             margin = rvq.score_margin(z, cb)
             near = {}
             for n_slices in (2, 4, 8):
                 rows = cb.shape[0] // n_slices
-                with timer.stage(f"combine over {n_slices} slices") as box:
+                with stage(f"combine over {n_slices} slices"):
                     pairs = [tp_module.shard_best(z, cb[s * rows:(s + 1) * rows], s * rows)
                              for s in range(n_slices)]
-                    box["result"] = combined = combine_shards(torch.stack([p[0] for p in pairs]),
-                                                              torch.stack([p[1] for p in pairs]))
+                    combined = combine_shards(torch.stack([p[0] for p in pairs]),
+                                              torch.stack([p[1] for p in pairs]))
                 near[n_slices] = parity.near_tie_mismatches(combined, whole, margin)
                 parity.check_share(near[n_slices], whole.numel(), f"combine over {n_slices} slices")
         print(f"tp lookup of {tuple(z.shape)} over the level-0 codebook {tuple(cb.shape)} equals "
@@ -2087,6 +2093,13 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
               f"lookup {near}")
         torch.cuda.synchronize()
         launches = {n_: k.launches for n_, k in _lib.KERNELS.items()}
+        profiling.disable()
+        recorded = profiling.snapshot()
+        stages = {sp["name"]: sp["device_ms"] if sp["device_ms"] is not None
+                  else (sp["end_ns"] - sp["start_ns"]) / 1e6
+                  for sp in recorded["spans"] if sp["parent"] is None}
+        check(all(recorded["counters"].get(f"launches.{n_}", 0) == k
+                  for n_, k in launches.items()), "parallel: the recorder's launch counts differ")
 
         s, c = check_sswm_calls(sw.calls, wm.presence_z0), check_lookup_calls(lk.calls + lt.calls + tk.calls)
         print(f"parallel: launches {launches}")
@@ -2096,16 +2109,20 @@ def parallel_runs(codec, dev, wm, wav: torch.Tensor, msg: torch.Tensor, entry_ou
         for n_ in ("whiten_correlate", "nearest_codebook"):
             check(launches[n_] > 0, f"parallel: kernel {n_} was not launched")
 
-        with trace(d / "trace"):
+        with profiling.trace(d / "trace"):
             run.gather(*run(wav, msg))
         path = d / "trace" / "trace.json"
         check(path.exists() and path.stat().st_size > 0, "no trace written")
         text = path.read_text()
         names = {k: k in text for k in ("sswm_correlate_kernel", "nearest_codebook_kernel")}
-        print(f"trace of the sharded eval: {path.stat().st_size} bytes; names the kernels: {names}")
-        print(timer.summary())
-        out.update(launches=launches, trace_names=names, near=near,
-                   stages={k: v / timer.counts[k] for k, v in timer.totals.items()})
+        spans = {sp["name"] for sp in json.loads((d / "trace" / "spans.json").read_text())["spans"]}
+        print(f"trace of the sharded eval: {path.stat().st_size} bytes; names the kernels: {names}; "
+              f"program spans {sorted(spans)}")
+        check({"ss.embed", "codec.encode", "codec.decode", "ss.detect"} <= spans,
+              "parallel: the trace's spans.json lacks the program's spans")
+        for name, ms in stages.items():
+            print(f"{name:30s} {ms:10.2f} ms")
+        out.update(launches=launches, trace_names=names, near=near, stages=stages)
     finally:
         dist.destroy_process_group()
     return out

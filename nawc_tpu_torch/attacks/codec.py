@@ -13,6 +13,7 @@ import torch
 
 from ..codec.api import CodecState
 from ..dsp.resample import resample
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.padding import fix_length, pad_to_multiple
 
@@ -24,16 +25,17 @@ def _norm_gain(wav: torch.Tensor, target_peak: float = 0.7) -> torch.Tensor:
 
 
 def _attack(codec: CodecState, wav: torch.Tensor, in_sr: int | None, run) -> torch.Tensor:
-    sr = codec.cfg.sample_rate
-    t_in = wav.shape[-1]
-    resampled = in_sr is not None and in_sr != sr
-    x = resample(wav, in_sr, sr) if resampled else wav
-    g = _norm_gain(x)
-    x = pad_to_multiple(x * g, codec.cfg.chunk, axis=-1)
-    y = run(x) / g
-    if resampled:
-        y = resample(y, sr, in_sr)
-    return fix_length(y, t_in)
+    with profiling.annotate("attack.codec", wav.device):
+        sr = codec.cfg.sample_rate
+        t_in = wav.shape[-1]
+        resampled = in_sr is not None and in_sr != sr
+        x = resample(wav, in_sr, sr) if resampled else wav
+        g = _norm_gain(x)
+        x = pad_to_multiple(x * g, codec.cfg.chunk, axis=-1)
+        y = run(x) / g
+        if resampled:
+            y = resample(y, sr, in_sr)
+        return fix_length(y, t_in)
 
 
 def codec_roundtrip(

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.rvq import nearest_codebook
+from ..utils import profiling
 from ..utils.config import CodecConfig
 from .layers import DecoderBlock, EncoderBlock, SameConv1d, Snake
 
@@ -40,11 +41,12 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T) waveform -> (B, T/hop, latent_dim) float32 latents."""
-        h = self.Conv_0(x[:, None, :].to(self.dtype))
-        for i in range(self.n_blocks):
-            h = getattr(self, f"EncoderBlock_{i}")(h)
-        h = self.Conv_1(self.Snake_0(h))
-        return h.transpose(1, 2).float()
+        with profiling.annotate("codec.encode", x.device):
+            h = self.Conv_0(x[:, None, :].to(self.dtype))
+            for i in range(self.n_blocks):
+                h = getattr(self, f"EncoderBlock_{i}")(h)
+            h = self.Conv_1(self.Snake_0(h))
+            return h.transpose(1, 2).float()
 
 
 class Decoder(nn.Module):
@@ -62,11 +64,12 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """(B, T/hop, latent_dim) -> (B, T) float32 waveform in [-1, 1]."""
-        h = self.Conv_0(z.transpose(1, 2).to(self.dtype))
-        for i in range(self.n_blocks):
-            h = getattr(self, f"DecoderBlock_{i}")(h)
-        h = self.Conv_1(self.Snake_0(h).float())
-        return torch.tanh(h)[:, 0]
+        with profiling.annotate("codec.decode", z.device):
+            h = self.Conv_0(z.transpose(1, 2).to(self.dtype))
+            for i in range(self.n_blocks):
+                h = getattr(self, f"DecoderBlock_{i}")(h)
+            h = self.Conv_1(self.Snake_0(h).float())
+            return torch.tanh(h)[:, 0]
 
 
 class VQLevel(nn.Module):
@@ -123,40 +126,43 @@ class ResidualVQ(nn.Module):
 
     def forward(self, z: torch.Tensor):
         """z (B, T', D) -> (z_q, codes list, commit loss, codebook loss)."""
-        residual = z
-        z_q = torch.zeros_like(z)
-        codes = []
-        commit = 0.0
-        cb_loss = 0.0
-        for level in self.levels:
-            out, c, cm, cb = level(residual)
-            residual = residual - out.detach()
-            z_q = z_q + out
-            codes.append(c)
-            commit = commit + cm
-            cb_loss = cb_loss + cb
-        return z_q, codes, commit, cb_loss
+        with profiling.annotate("codec.quantize", z.device):
+            residual = z
+            z_q = torch.zeros_like(z)
+            codes = []
+            commit = 0.0
+            cb_loss = 0.0
+            for level in self.levels:
+                out, c, cm, cb = level(residual)
+                residual = residual - out.detach()
+                z_q = z_q + out
+                codes.append(c)
+                commit = commit + cm
+                cb_loss = cb_loss + cb
+            return z_q, codes, commit, cb_loss
 
     def encode(self, z: torch.Tensor) -> list[torch.Tensor]:
-        residual = z
-        codes = []
-        for level in self.levels:
-            c, _ = level.encode(residual)
-            residual = residual - level.dequantize(c, residual.shape[1])
-            codes.append(c)
-        return codes
+        with profiling.annotate("codec.quantize", z.device):
+            residual = z
+            codes = []
+            for level in self.levels:
+                c, _ = level.encode(residual)
+                residual = residual - level.dequantize(c, residual.shape[1])
+                codes.append(c)
+            return codes
 
     def from_codes(
         self, codes: Sequence[torch.Tensor], out_len: int, level_mask: torch.Tensor | None = None
     ) -> torch.Tensor:
         """codes -> z_q; `level_mask` (num_levels,) zeroes levels (ablation)."""
-        z_q = None
-        for i, level in enumerate(self.levels):
-            out = level.dequantize(codes[i], out_len)
-            if level_mask is not None:
-                out = out * level_mask[i]
-            z_q = out if z_q is None else z_q + out
-        return z_q
+        with profiling.annotate("codec.quantize", codes[0].device):
+            z_q = None
+            for i, level in enumerate(self.levels):
+                out = level.dequantize(codes[i], out_len)
+                if level_mask is not None:
+                    out = out * level_mask[i]
+                z_q = out if z_q is None else z_q + out
+            return z_q
 
 
 class SnacCodec(nn.Module):

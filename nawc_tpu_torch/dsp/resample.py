@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 
 @functools.lru_cache(maxsize=64)
 def _polyphase_kernel(
@@ -44,7 +46,7 @@ def resample(
     if orig == new:
         return x
     kern_np, o, n, width = _polyphase_kernel(orig, new, lowpass_filter_width, rolloff)
-    kern = torch.as_tensor(kern_np, device=x.device, dtype=x.dtype)
+    kern = profiling.to_device(kern_np, x.device, x.dtype)
     lead = x.shape[:-1]
     t_in = x.shape[-1]
     xb = F.pad(x.reshape(-1, 1, t_in), (width, width + o))

@@ -13,14 +13,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ..utils.config import StftConfig
 
 
 def hann(win: int, device=None, dtype=torch.float32) -> torch.Tensor:
-    """Periodic Hann window, built in float64 numpy as the JAX package does."""
+    """Periodic Hann window, built in float64 numpy as the JAX package does
+    and copied to `device` in float32 at each call."""
     n = np.arange(win)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win)
-    return torch.as_tensor(w.astype(np.float32), device=device).to(dtype)
+    return profiling.to_device(w.astype(np.float32), device).to(dtype)
 
 
 def frame(x: torch.Tensor, win: int, hop: int) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 from .attacks.codec import codec_roundtrip
 from .codec.api import CodecState, make_codec
 from .models.spread_spectrum import SpreadSpectrumWM
+from .utils import profiling
 from .utils.config import CodecConfig, SpreadSpectrumConfig
 from .utils.device import no_tf32, resolve_device
 
@@ -39,9 +40,10 @@ def entry(codec: CodecState | None = None, device: str | torch.device = "cuda"):
     @torch.no_grad()
     @no_tf32()
     def fn(wav: torch.Tensor, msg: torch.Tensor):
-        marked = wm.embed(wav, msg)
-        attacked = codec_roundtrip(codec, marked, in_sr=sr)
-        presence, bits = wm.detect(attacked)
+        with profiling.annotate("entry.call", wav.device):
+            marked = wm.embed(wav, msg)
+            attacked = codec_roundtrip(codec, marked, in_sr=sr)
+            presence, bits = wm.detect(attacked)
         return marked, presence, bits
 
     # 1-s clips, as the JAX entry's example

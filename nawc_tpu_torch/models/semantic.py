@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ..codec.api import CodecState
 from ..dsp.stft import istft, stft
-from ..utils import jaxrand
+from ..utils import jaxrand, profiling
 from ..utils.config import SemanticWMConfig, StftConfig
 from ..utils.padding import pad_to_multiple
 from .base import register
@@ -45,7 +45,7 @@ def pca_axis(codebook: torch.Tensor) -> torch.Tensor:
     float64 SVD as in JAX (so that its sign is JAX's)."""
     cb = codebook.detach().cpu().numpy().astype(np.float64)
     _, _, vh = np.linalg.svd(cb - cb.mean(axis=0, keepdims=True), full_matrices=False)
-    return torch.as_tensor(vh[0].astype(np.float32), device=codebook.device)
+    return profiling.to_device(vh[0].astype(np.float32), codebook.device)
 
 
 def kmeans_axis(codebook: torch.Tensor, iters: int = 10, seed: int = 42) -> torch.Tensor:
@@ -54,7 +54,7 @@ def kmeans_axis(codebook: torch.Tensor, iters: int = 10, seed: int = 42) -> torc
     `iters` Lloyd iterations (ties to the first centroid)."""
     cb = codebook.detach()
     idx = jaxrand.choice(jaxrand.prng_key(seed), cb.shape[0], (2,))
-    cents = cb[torch.as_tensor(idx, device=cb.device).long()]
+    cents = cb[profiling.to_device(idx, cb.device).long()]
     for _ in range(iters):
         assign = ((cb[:, None, :] - cents[None, :, :]) ** 2).sum(dim=-1).argmin(dim=-1)
         means = []
@@ -68,7 +68,7 @@ def kmeans_axis(codebook: torch.Tensor, iters: int = 10, seed: int = 42) -> torc
 
 def random_axis(dim: int, seed: int = 42, device: str | torch.device = "cuda") -> torch.Tensor:
     """The unit vector of ``jax.random.normal(PRNGKey(seed), (dim,))``."""
-    v = torch.as_tensor(jaxrand.normal(jaxrand.prng_key(seed), (dim,)), device=device)
+    v = profiling.to_device(jaxrand.normal(jaxrand.prng_key(seed), (dim,)), device)
     return v / (torch.linalg.vector_norm(v) + 1e-9)
 
 
@@ -79,7 +79,7 @@ def _pn(n_frames: int, seed: int, device: str | torch.device = "cpu") -> torch.T
     """Per-frame +-1 PN sequence of ``jax.random.bernoulli``; threefry bits
     are counter-based, so shorter sequences are prefixes of longer ones."""
     bits = jaxrand.bernoulli(jaxrand.prng_key(seed), 0.5, (n_frames,))
-    return torch.as_tensor(2.0 * bits.astype(np.float32) - 1.0, device=device)
+    return profiling.to_device(2.0 * bits.astype(np.float32) - 1.0, device)
 
 
 def _residual(proj: torch.Tensor, window: int) -> torch.Tensor:
@@ -152,7 +152,9 @@ def _spectral_projection(delta: torch.Tensor, mask: torch.Tensor, x_mag: torch.T
 def semantic_embed(codec: CodecState, scfg: SemanticWMConfig, axis: torch.Tensor,
                    wav: torch.Tensor) -> torch.Tensor:
     """Batched Adam-PGD embed maximising the PN-correlation z under the
-    SDR-derived budget; (B, T) -> (B, T)."""
+    SDR-derived budget; (B, T) -> (B, T).  Spans per step:
+    ``semantic.loss``, ``semantic.backward`` and ``semantic.adam``
+    (gradient mask, Adam, budget)."""
     x = pad_to_multiple(wav.detach(), codec.cfg.chunk, axis=-1)
     rms = torch.sqrt((x * x).mean(dim=-1, keepdim=True))
     amp = rms * 10.0 ** (-scfg.target_sdr_db / 20.0)  # (B, 1)
@@ -179,6 +181,7 @@ def semantic_embed(codec: CodecState, scfg: SemanticWMConfig, axis: torch.Tensor
     delta = torch.zeros_like(x, requires_grad=True)
     opt = torch.optim.Adam([delta], lr=scfg.lr)
 
+    dev = x.device
     n_phases = min(max(1, scfg.n_proj_phases) if shaping else 1, max(1, scfg.steps))
     base, rem = divmod(scfg.steps, n_phases)
     with torch.enable_grad():
@@ -188,12 +191,16 @@ def semantic_embed(codec: CodecState, scfg: SemanticWMConfig, axis: torch.Tensor
             if n == 0:  # steps == 0: JAX dispatches nothing, not even the projection
                 continue
             for _ in range(n):
-                opt.zero_grad()
-                _loss(codec, scfg, axis, s, x, mask, delta).backward()
-                delta.grad.mul_(mask)
-                opt.step()
-                with torch.no_grad():
-                    delta.copy_(clip_budget(delta))
+                with profiling.annotate("semantic.loss", dev):
+                    loss = _loss(codec, scfg, axis, s, x, mask, delta)
+                with profiling.annotate("semantic.backward", dev):
+                    loss.backward()
+                with profiling.annotate("semantic.adam", dev):
+                    delta.grad.mul_(mask)
+                    opt.step()
+                    opt.zero_grad()
+                    with torch.no_grad():
+                        delta.copy_(clip_budget(delta))
             if shaping:
                 with torch.no_grad():
                     delta.copy_(clip_budget(_spectral_projection(

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..dsp.stft import istft, stft
 from ..ops.sswm import whiten_correlate
-from ..utils import jaxrand
+from ..utils import jaxrand, profiling
 from ..utils.config import SpreadSpectrumConfig, StftConfig
 from .base import register
 
@@ -135,35 +135,36 @@ class SpreadSpectrumWM:
         return StftConfig(self.cfg.n_fft, self.cfg.hop, self.cfg.n_fft)
 
     def _patterns(self, device: torch.device) -> torch.Tensor:
-        return torch.tensor(_pn_patterns_np(self.seed, self.cfg), device=device)
+        return profiling.to_device(_pn_patterns_np(self.seed, self.cfg), device)
 
     # -- embed -------------------------------------------------------------
     def embed(self, wav: torch.Tensor, msg: torch.Tensor, key=None) -> torch.Tensor:
         """(B, T), (B, n_bits) in {0, 1} -> (B, T) marked audio.  `key` is
         unused (the secret is `seed`), as in the JAX package."""
-        cfg = self.cfg
-        lo, hi = _band_slice(cfg)
-        spec_clean = stft(wav, self.stft_cfg)  # (B, T', F)
-        t = spec_clean.shape[-2]
-        p = _tile_patterns(self._patterns(wav.device), t)  # (n_bits, T', W)
-        s = 2.0 * msg.to(torch.float32) - 1.0  # (B, n_bits)
-        mod = torch.einsum("bk,ktw->btw", s, p) / math.sqrt(float(cfg.n_bits))
-        want = cfg.alpha * torch.clamp(mod, -3.0, 3.0)  # target log-mag delta
-        log_clean = torch.log(torch.abs(spec_clean) + 1e-6)
-        want = want * _level_mask(log_clean[..., lo:hi], cfg)
+        with profiling.annotate("ss.embed", wav.device):
+            cfg = self.cfg
+            lo, hi = _band_slice(cfg)
+            spec_clean = stft(wav, self.stft_cfg)  # (B, T', F)
+            t = spec_clean.shape[-2]
+            p = _tile_patterns(self._patterns(wav.device), t)  # (n_bits, T', W)
+            s = 2.0 * msg.to(torch.float32) - 1.0  # (B, n_bits)
+            mod = torch.einsum("bk,ktw->btw", s, p) / math.sqrt(float(cfg.n_bits))
+            want = cfg.alpha * torch.clamp(mod, -3.0, 3.0)  # target log-mag delta
+            log_clean = torch.log(torch.abs(spec_clean) + 1e-6)
+            want = want * _level_mask(log_clean[..., lo:hi], cfg)
 
-        gain = torch.ones_like(spec_clean.real)
-        gain[..., lo:hi] += want
-        marked = istft(spec_clean * gain, self.stft_cfg, length=wav.shape[-1])
-        for _ in range(self.n_passes - 1):
-            # re-apply the modulation the overlap-add resynthesis lost
-            sm = stft(marked, self.stft_cfg)
-            delta = torch.log(torch.abs(sm) + 1e-6) - log_clean
-            fix = torch.clamp(want - delta[..., lo:hi], -0.5, 0.5)
-            gain = torch.ones_like(sm.real)
-            gain[..., lo:hi] += fix
-            marked = istft(sm * gain, self.stft_cfg, length=wav.shape[-1])
-        return torch.clamp(marked, -1.0, 1.0)
+            gain = torch.ones_like(spec_clean.real)
+            gain[..., lo:hi] += want
+            marked = istft(spec_clean * gain, self.stft_cfg, length=wav.shape[-1])
+            for _ in range(self.n_passes - 1):
+                # re-apply the modulation the overlap-add resynthesis lost
+                sm = stft(marked, self.stft_cfg)
+                delta = torch.log(torch.abs(sm) + 1e-6) - log_clean
+                fix = torch.clamp(want - delta[..., lo:hi], -0.5, 0.5)
+                gain = torch.ones_like(sm.real)
+                gain[..., lo:hi] += fix
+                marked = istft(sm * gain, self.stft_cfg, length=wav.shape[-1])
+            return torch.clamp(marked, -1.0, 1.0)
 
     # -- detect ------------------------------------------------------------
     def _band_residual(self, wav: torch.Tensor) -> torch.Tensor:
@@ -185,8 +186,9 @@ class SpreadSpectrumWM:
         return torch.sigmoid(self.presence_gain * (z.abs().mean(dim=-1) - self.presence_z0))
 
     def detect(self, wav: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        z = self._correlate(wav)
-        return self._presence(z), (z > 0).to(torch.int32)
+        with profiling.annotate("ss.detect", wav.device):
+            z = self._correlate(wav)
+            return self._presence(z), (z > 0).to(torch.int32)
 
     # -- synchronization search -------------------------------------------
     def _whitened_residual(self, wav: torch.Tensor) -> torch.Tensor:
@@ -234,11 +236,12 @@ class SpreadSpectrumWM:
 
     def score(self, wav: torch.Tensor, msg: torch.Tensor | None = None) -> torch.Tensor:
         """Presence probability; with a known payload, the signed correlation."""
-        z = self._correlate(wav)
-        if msg is None:
-            return self._presence(z)
-        s = 2.0 * msg.to(torch.float32) - 1.0
-        return torch.sigmoid(self.score_gain * ((z * s).mean(dim=-1) - self.score_z0))
+        with profiling.annotate("ss.detect", wav.device):
+            z = self._correlate(wav)
+            if msg is None:
+                return self._presence(z)
+            s = 2.0 * msg.to(torch.float32) - 1.0
+            return torch.sigmoid(self.score_gain * ((z * s).mean(dim=-1) - self.score_z0))
 
 
 @register("spread_spectrum")

@@ -10,7 +10,8 @@ is rebuilt and a stale library is never loaded.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises if that is not 0 and
-counts the launch otherwise.
+counts the launch otherwise, as ``launches.<kernel>`` in
+``utils/profiling``'s counters.
 
 Dispatch rule shared by every op in ``ops/``: a CUDA tensor goes to the
 kernel (or the op raises), a CPU tensor goes to the plain PyTorch version.
@@ -32,6 +33,8 @@ from pathlib import Path
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
+
+from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nawc_tpu_torch"
@@ -85,11 +88,14 @@ def build() -> tuple[Path, str]:
     """Compile the kernels if their library is missing -> (path, nvcc log).
 
     The log holds what ``-Xptxas -v`` reports for each kernel (registers,
-    shared memory, spills); it is empty when the library was already built."""
+    shared memory, spills); it is empty when the library was already built.
+    A build counts ``tables.built.library`` in ``utils/profiling``'s
+    counters, at all times."""
     global _build_log
     out = library_path()
     if out.exists():
         return out, _build_log
+    profiling.count("tables.built.library")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -145,16 +151,21 @@ class CEntry:
 class CudaKernel(CEntry):
     """A C entry that launches kernels, with its launch count.
 
-    ``launches`` grows by one for every call whose launches the CUDA runtime
-    accepted, and nowhere else."""
+    Every call whose launches the CUDA runtime accepted, and nothing else,
+    counts one in ``utils/profiling``'s counter ``launches.<name>``, which
+    counts at all times; ``launches`` is its running total."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         super().__init__(name, symbol, argtypes)
-        self.launches = 0
+        self.counter = f"launches.{name}"
 
     def __call__(self, *args) -> None:
         super().__call__(*args)
-        self.launches += 1
+        profiling.count(self.counter)
+
+    @property
+    def launches(self) -> int:
+        return profiling.total(self.counter)
 
 
 KERNELS: dict[str, CudaKernel] = {}
@@ -166,8 +177,9 @@ def register(kernel: CudaKernel) -> CudaKernel:
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    """Every kernel's launch count back to zero, in ``launches`` and in the
+    recorder's counters."""
+    profiling.reset("launches.")
 
 
 @contextlib.contextmanager
@@ -194,11 +206,14 @@ def derived(owner, name: str, sources: list[torch.Tensor], make):
     """``make()``, kept for `owner` (a module or a tensor) until one of the
     `sources` it was made from is moved, replaced or changed in place.  The
     kept references pin the old storage, so that a new tensor cannot reuse
-    its address.  For a kernel's tables that only change with the weights."""
+    its address.  For a kernel's tables that only change with the weights.
+    Each ``make()`` counts ``tables.built.<name>`` in ``utils/profiling``'s
+    counters, at all times."""
     key = [(t.data_ptr(), t._version) for t in sources]
     kept = _DERIVED.setdefault(owner, {})
     hit = kept.get(name)
     if hit is None or hit[0] != key:
+        profiling.count(f"tables.built.{name}")
         hit = kept[name] = (key, [t.detach() for t in sources], make())
     return hit[2]
 
