@@ -14,7 +14,8 @@ Phases, each printing its seconds:
    instantiation's SASS (by ``cuobjdump -sass``) no float64 conversion or
    arithmetic, and each Snake kernel's opcodes (the range checks, FCHK,
    and the calls among them) and SASS instructions per element are
-   printed;
+   printed; the stride-1 convolution kernel's functions must have no stack
+   frame and no spills;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -45,6 +46,11 @@ Phases, each printing its seconds:
    plain forward, dx bit for bit its formula, two runs bit for bit, device
    and wall ms of each pass beside the plain version's and the bound, and
    their sums over each encode beside phase 1's instructions per element;
+   and the stride-1 convolution kernel (``csrc/same_conv.cu``) at the 50
+   convolutions of one bfloat16 16 x 4 s encode and decode against its
+   plain version (every output within its ulp bar, two runs bit for bit),
+   with its device time beside the plain version's, cuDNN's bfloat16
+   ``F.conv1d`` and the bound;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -75,6 +81,7 @@ Phases, each printing its seconds:
    agreement with the float32 codec per level (JAX's bar: above 0.94 on
    average), decode rel-rms against float32 (under 0.1), and the time per
    batch of embed + bf16 encode + detect beside phase 6's float32 figure;
+   the encode and decode launch the stride-1 convolution kernel 50 times;
 10. codec-latent watermarks: ``run_combined`` of semantic_pca,
    semantic_cluster, semantic_random and token_green at 200 of their
    operating point's 300 Adam steps on 4 seeded speech-like clips of 2 s at 16 kHz,
@@ -226,6 +233,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F64_FLOPS = 34e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # an FMA-unit instruction (add, multiply or fused multiply-add) is one
 # operation at half the FLOP/s, which count a fused multiply-add as two
@@ -236,9 +244,12 @@ JAXRAND_SASS = {"uniform": "keyed_kernelILb0E", "normal": "keyed_kernelILb1E",
                 "normal_of_bits": "normal_of_bits_kernel"}
 F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
 # the kernels of the main path (phase 4); the draw kernel's own path is the
-# sweep (phase 8), the Snake backward's the trainers (phase 13)
+# sweep (phase 8), the Snake backward's the trainers (phase 13), the
+# stride-1 convolution's the bfloat16 codec (phase 9)
 MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake")
-LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)"}
+BF16_ONLY = ("same_conv",)  # launched by bfloat16 codecs only
+LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)",
+               "same_conv": "bf16 codec (phase 9)"}
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
@@ -1020,6 +1031,97 @@ def check_snake(dev, sass: dict[str, dict]) -> dict:
                           bound_by=f32["fby"], library_ms=None),
             "snake_backward": dict(max_abs_err=f32["err_dx"], ms=f32["b"], plain_ms=f32["bp"],
                                    bound_ms=f32["bb"], bound_by=f32["bby"], library_ms=None)}
+
+
+# ------------------------------------------------------------------ the stride-1 convolutions (phases 1, 2)
+
+def check_same_conv_build(log: str) -> None:
+    """Phase 1's check of the stride-1 convolution kernel: no stack frame and
+    no spills in any function of ``same_conv.cu`` (``-Xptxas -v``; only on a
+    fresh build)."""
+    mine = {n: v for n, v in ptxas_properties(log).items() if "same_conv_cu" in n}
+    if log:
+        check(len(mine) >= 1 and all(
+            v.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            for v in mine.values()), f"same_conv: ptxas reports {mine}")
+        print(f"same_conv ptxas: {len(mine)} functions, 0-byte frames, no spills")
+    else:
+        print("same_conv ptxas: the library was built before this run; nvcc printed nothing")
+
+
+def device_ms_retried(fn, tries: int = 3) -> float:
+    """``device_ms``, taken again where a profiler window lost its events
+    and read 0 (§7 of PERF.md: the profiler now and then drops a window's
+    first records)."""
+    for _ in range(tries):
+        ms = device_ms(fn)
+        if ms > 0:
+            break
+    check(ms > 0, f"{tries} profiler windows read no device time")
+    return ms
+
+
+def check_same_conv(dev) -> dict:
+    """The kernel against its plain version on the card at the 50 stride-1
+    convolutions of one 16 x 4 s bfloat16 encode and decode (each distinct
+    geometry once, counted as often as the codec runs it): every output
+    within two bfloat16 ulps of the largest of |acc|, |y| and |out| of plain
+    (a flip of RN(acc) and the two adds after it) plus K 2^-22 sum |products|
+    (two float32 sums of the K = C_in k products in different orders), the
+    largest difference printed in those ulps; two runs bit for bit;
+    device ms of the kernel, of the plain version and of cuDNN's bfloat16
+    ``F.conv1d`` at the same padding (a yardstick only), and the bound: per
+    launch the larger of its bytes at 3.35 TB/s and FLOPs at 989 TFLOP/s,
+    summed.  -> the kernel's record."""
+    from nawc_tpu_torch.ops import same_conv as sc
+    from nawc_tpu_torch.tools.conv_layers import stride1_geometries
+
+    counts: dict[tuple, int] = {}
+    for g in stride1_geometries():
+        counts[g] = counts.get(g, 0) + 1
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, ulps=0.0, err=0.0)
+    for i, ((c_in, c_out, k, d, residual, t), n) in enumerate(sorted(counts.items())):
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        x = torch.randn((BATCH, c_in, t), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
+        b = torch.randn((c_out,), generator=gen, device=dev) * 0.1
+        res = torch.randn((BATCH, c_out, t), generator=gen, device=dev).to(torch.bfloat16) if residual else None
+        with torch.no_grad():
+            got = sc.same_conv(x, w, b, d, res)
+            want = sc.same_conv_reference(x, w, b, d, res)
+            p = d * (k - 1) // 2
+            acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float(),
+                                             w.to(torch.bfloat16).float(), None, 1, 0, d)
+            y = sc.same_conv_reference(x, w, b, d) if residual else want
+            scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
+            off = (got.float() - want.float()).abs()
+            sums = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float().abs(),
+                                              w.to(torch.bfloat16).float().abs(), None, 1, 0, d)
+            past = int((off > 2 * ulp + sums * (c_in * k * 2.0**-22)).sum())
+            ulps, err = float((off / ulp).max()), float(off.max())
+            del acc, y, scale, ulp, off, want, sums
+            check(torch.equal(got, sc.same_conv(x, w, b, d, res)), f"same_conv {c_in} k{k} d{d}: two runs differ")
+            ms = device_ms_retried(lambda: sc.same_conv(x, w, b, d, res))
+            with _lib.plain_versions():
+                plain_ms = device_ms_retried(lambda: sc.same_conv(x, w, b, d, res))
+            wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+            lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d))
+        check(past == 0, f"same_conv {c_in} k{k} d{d}: {past} outputs off plain past their bar")
+        nbytes, flops = sc.bound_counts(BATCH, c_in, c_out, t, k, residual)
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+        print(f"same_conv {c_in}->{c_out} k{k} d{d}{' +res' if residual else ''} T {t} (x{n}): device "
+              f"{ms:.4f} ms, plain {plain_ms:.4f}, cuDNN F.conv1d {lib_ms:.4f}, bound {bound_ms:.4f} "
+              f"({100 * bound_ms / ms:.1f}%); {ulps:g} ulps, {err:.3g} off plain")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bound", bound_ms)):
+            tot[key] += n * v
+        tot["ulps"], tot["err"] = max(tot["ulps"], ulps), max(tot["err"], err)
+        del x, w, b, res, got
+    print(f"same_conv, the 50 launches of one {BATCH} x {SECONDS} s encode and decode: {tot['ms']:.3f} ms "
+          f"(plain {tot['plain']:.3f}, cuDNN {tot['lib']:.3f}, bound {tot['bound']:.3f}: "
+          f"{100 * tot['bound'] / tot['ms']:.0f}% of it); largest {tot['ulps']:g} ulps off plain")
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+                bound_by="bytes and operations, the larger a launch", library_ms=tot["lib"])
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1868,7 +1970,8 @@ def interp_phase(dev, wm, marked: torch.Tensor, msg: torch.Tensor, results_rows:
     print(f"  nearest_codebook calls {c['shapes']}: {c['near_codes']} of {c['frames']} codes differ "
           f"(near-ties); rvq_encode_fused calls {r['shapes']}: {r['near_codes']} of {r['frames']} differ")
     for n in _lib.KERNELS:
-        check(launches[n] > 0, f"interp: kernel {n} was not launched")
+        if n not in BF16_ONLY:  # interp runs the float32 codec
+            check(launches[n] > 0, f"interp: kernel {n} was not launched")
     print("interp seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in out["s"].items())
           + "; device draws " + ", ".join(f"{k} {v:.3f} ms" for k, v in draw_ms.items())
           + f" ({draws['draws']} draws bit for bit the replica); peak memory of exp_c "
@@ -2174,6 +2277,7 @@ def main() -> int:
         funcs = sass_functions(text)
         check_jaxrand_build(funcs, log)
         sass = check_snake_build(text, log)
+        check_same_conv_build(log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -2184,6 +2288,7 @@ def main() -> int:
                 "random tables"),
             "jaxrand": check_jaxrand(dev),
             **check_snake(dev, sass),
+            "same_conv": check_same_conv(dev),
         }
 
     with phase("3 weights"):
@@ -2327,6 +2432,8 @@ def main() -> int:
         print(f"launches in the bf16 checks: {bf16_launches}")
         for n in ("rvq_encode_fused", "snake"):
             check(bf16_launches[n] > 0, f"bf16 encode did not launch {n}")
+        check(bf16_launches["same_conv"] == 50,
+              f"one bf16 encode and decode launched same_conv {bf16_launches['same_conv']} times, not 50")
         del codec16
 
     with phase("10 codec-latent watermarks"):
@@ -2357,8 +2464,10 @@ def main() -> int:
              "rvq_encode_fused": ("rvq_fused.cu", "nawc_tpu/ops/rvq_fused.py:107"),
              "jaxrand": ("jaxrand.cu", "nawc_tpu/interp/uncertainty.py:28"),
              "snake": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
-             "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42")}
-    on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"]}
+             "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
+             "same_conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py")}
+    on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"],
+          "bf16 codec (phase 9)": bf16_launches}
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import same_conv as _same_conv
 from ..ops.snake import sin2_periodic as _sin2_periodic  # noqa: F401  (kept under its old name)
 from ..ops.snake import snake
 
@@ -49,16 +50,24 @@ class Snake(nn.Module):
 
 class SameConv1d(nn.Conv1d):
     """``nn.Conv1d`` with flax's "SAME" padding (any stride, dilation or
-    group count)."""
+    group count), plus `residual` where given.  A bfloat16 conv in the
+    domain of ``ops.same_conv.takes`` (stride 1, one group, odd k <= 7,
+    padding <= 32, channel counts multiples of 16) is the op
+    ``ops.same_conv``: on the card the
+    kernel ``csrc/same_conv.cu``, which pads, adds the bias and the
+    residual itself; on the CPU the same arithmetic as below."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        if _same_conv.takes(x, self.in_channels, self.out_channels, k, s, d, self.groups):
+            return _same_conv.same_conv(x, self.weight, self.bias, d, residual)
         t = x.shape[-1]
         out = -(-t // s)
         total = max((out - 1) * s + d * (k - 1) + 1 - t, 0)
         if total:
             x = F.pad(x, (total // 2, total - total // 2))
-        return _conv(F.conv1d, x, self.weight, self.bias, s, 0, d, self.groups)
+        y = _conv(F.conv1d, x, self.weight, self.bias, s, 0, d, self.groups)
+        return y if residual is None else residual + y
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):
@@ -92,8 +101,7 @@ class ResidualUnit(nn.Module):
         self.Conv_1 = SameConv1d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.Conv_1(self.Snake_1(self.Conv_0(self.Snake_0(x))))
-        return x + y
+        return self.Conv_1(self.Snake_1(self.Conv_0(self.Snake_0(x))), residual=x)
 
 
 class EncoderBlock(nn.Module):

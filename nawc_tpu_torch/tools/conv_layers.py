@@ -1,0 +1,165 @@
+"""Device time of each convolution layer of the codec, kernel by kernel.
+
+    python3 -m nawc_tpu_torch.tools.conv_layers [--dtype bfloat16] [--out layers.json]
+
+Builds the codec at ``CodecConfig()``'s widths in the given compute type on
+the card (random weights: the kernels cuDNN picks depend on shapes alone,
+``cudnn.benchmark`` off), runs one encode and decode of a 16 x 4 s batch at
+24 kHz (98,304 samples, the benchmark's padded length), keeps each
+convolution module's inputs, and then profiles each module alone on them
+(``torch.profiler``, 3 calls after a warm one): its pads, casts, convolution
+and bias kernels.  Where a ``ResidualUnit`` adds ``x + y`` outside its
+convolutions, that add is profiled as a layer of its own.  Prints the
+device ms per call of each layer kind by kernel, and with ``--out`` writes
+every layer's row as JSON.  Runs on a CUDA device only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..codec.layers import ResidualUnit, SameConv1d, SameConvTranspose1d
+from ..codec.model import SnacCodec
+from ..utils.config import CodecConfig
+
+
+def stride1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) -> list[tuple]:
+    """(C_in, C_out, k, dilation, residual, T) of the stride-1 convolutions
+    of one encode and decode of `samples` samples that ``ops.same_conv``
+    takes in bfloat16, in the codec's order: each ResidualUnit's Conv_0 (k 7
+    at dilation 1, 3, 9) and Conv_1 (k 1, with the unit's residual), the
+    encoder's Conv_1 and the decoder's Conv_0 (50 at ``CodecConfig()``)."""
+    out, t, d = [], samples, cfg.encoder_dim
+
+    def units(dim, t):
+        return [g for dil in (1, 3, 9) for g in ((dim, dim, 7, dil, False, t), (dim, dim, 1, 1, True, t))]
+
+    for rate in cfg.encoder_rates:
+        out += units(d, t)
+        d, t = d * 2, t // rate
+    out += [(d, cfg.latent_dim, 3, 1, False, t), (cfg.latent_dim, cfg.decoder_dim, 7, 1, False, t)]
+    d = cfg.decoder_dim
+    for rate in cfg.decoder_rates:
+        d, t = d // 2, t * rate
+        out += units(d, t)
+    return out
+
+
+def _kind(path: str, mod, args, kwargs) -> str:
+    x = args[0]
+    k, s, d = mod.kernel_size[0], mod.stride[0], mod.dilation[0]
+    c_in, c_out = mod.in_channels, mod.out_channels
+    if isinstance(mod, SameConvTranspose1d):
+        return f"ConvTranspose {c_in}->{c_out} s{s}"
+    if ".ResidualUnit_" in path and path.endswith("Conv_0"):
+        return f"RU Conv_0 {c_in} k{k} d{d}"
+    if ".ResidualUnit_" in path:
+        return f"RU Conv_1 {c_in} k{k}" + (" +res" if kwargs.get("residual") is not None else "")
+    if s > 1:
+        return f"strided Conv {c_in}->{c_out} k{k} s{s}"
+    return f"{path.split('.')[0]} {path.split('.')[-1]} {c_in}->{c_out} k{k} ({str(x.dtype)[6:]})"
+
+
+def _device_ms(fn, calls: int = 3) -> dict[str, float]:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the window's first records can be lost
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] += e.self_device_time_total / 1e3 / calls
+    return dict(out)
+
+
+def layer_rows(dtype: str, batch: int = 16, samples: int = 98_304) -> list[dict]:
+    dev = torch.device("cuda")
+    cfg = CodecConfig(compute_dtype=dtype)
+    model = SnacCodec(cfg).to(dev).eval()
+    captured: list[tuple[str, torch.nn.Module, tuple, dict]] = []
+    adds: list[tuple[str, torch.Tensor, torch.Tensor]] = []
+    hooks = []
+    for path, mod in model.named_modules():
+        if isinstance(mod, (SameConv1d, SameConvTranspose1d)):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a, kw, _p=path: captured.append((_p, m, a, dict(kw))), with_kwargs=True))
+        elif isinstance(mod, ResidualUnit):
+            def keep(m, a, out, _p=path):
+                if "residual" not in captured[-1][3]:  # the add is outside the conv
+                    adds.append((_p, a[0], out - a[0]))
+            hooks.append(mod.register_forward_hook(keep))
+    wav = torch.randn(batch, samples, device=dev) * 0.1
+    with torch.no_grad():
+        model.decoder(model.encoder(wav))
+    for h in hooks:
+        h.remove()
+    rows = []
+    with torch.no_grad():
+        for path, mod, args, kwargs in captured:
+            ms = _device_ms(lambda: mod(*args, **kwargs))
+            rows.append(dict(layer=path, kind=_kind(path, mod, args, kwargs),
+                             shape=list(args[0].shape), kernels=ms, ms=sum(ms.values())))
+        for path, x, y in adds:
+            ms = _device_ms(lambda: x + y)
+            rows.append(dict(layer=path + ".add", kind=f"RU x + y {x.shape[1]}", shape=list(x.shape),
+                             kernels=ms, ms=sum(ms.values())))
+    return rows
+
+
+def family(kernel: str) -> str:
+    n = kernel.lower()
+    for key, name in (("same_conv", "same_conv (ours)"), ("implicit_convolve_sgemm", "implicit_convolve_sgemm"),
+                      ("nchwtonhwc", "transposes"), ("nhwctonchw", "transposes"),
+                      ("xmma", "tensor-core fprop"), ("cutlass", "tensor-core fprop"),
+                      ("dgrad", "dgrad"), ("elementwise", "elementwise")):
+        if key in n:
+            return name
+    return "other"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("conv_layers: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = layer_rows(args.dtype)
+    by_kind: dict[str, dict[str, float]] = defaultdict(lambda: defaultdict(float))
+    count: dict[str, int] = defaultdict(int)
+    for r in rows:
+        count[r["kind"]] += 1
+        for k, v in r["kernels"].items():
+            by_kind[r["kind"]][family(k)] += v
+    print(f"{torch.cuda.get_device_name(0)}, {args.dtype}: device ms per 16 x 4 s call by layer kind")
+    total = defaultdict(float)
+    for kind in sorted(by_kind, key=lambda k: -sum(by_kind[k].values())):
+        fams = by_kind[kind]
+        for f, v in fams.items():
+            total[f] += v
+        print(f"  {kind:36s} x{count[kind]:2d}  {sum(fams.values()):8.3f} ms  "
+              + ", ".join(f"{f} {v:.3f}" for f, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    print(f"  all layers: {sum(total.values()):.3f} ms: "
+          + ", ".join(f"{f} {v:.3f}" for f, v in sorted(total.items(), key=lambda kv: -kv[1])))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(device=torch.cuda.get_device_name(0), dtype=args.dtype, rows=rows), f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,7 @@ import torch
 
 from nawc_tpu_torch.codec.model import ResidualVQ
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm
+from nawc_tpu_torch.tools.conv_layers import stride1_geometries
 from nawc_tpu_torch.utils.config import CodecConfig
 
 pytestmark = pytest.mark.cuda
@@ -546,3 +547,183 @@ def test_snake_under_no_grad_launches_the_forward_only(dev):
     assert (so._FORWARD.launches, so._BACKWARD.launches) == (f + 2, b + 1)
     (want,) = torch.autograd.grad(so.snake_reference(x, la), (la,), g)
     assert float((dla - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------- the stride-1 convolutions
+
+_SC_GEOMETRIES = sorted(set(g[:5] for g in stride1_geometries()))
+_SC_FULL = [g for g in set(stride1_geometries()) if g[0] in (48, 768)]
+
+
+def _same_conv_ops():
+    from nawc_tpu_torch.ops import same_conv as sc
+
+    return sc
+
+
+def _sc_case(c_in, c_out, k, b, t, dev, seed, offset=0):
+    """x at 1 sigma from element `offset` of a flat buffer (so that its
+    address and rows need not be aligned), the flax init's weight scale, a
+    bias at 0.1 and a residual at 1 sigma, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn(b * c_in * t + offset, generator=gen, device=dev).to(torch.bfloat16)
+    x = buf[offset:].view(b, c_in, t)
+    w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
+    bias = torch.randn(c_out, generator=gen, device=dev) * 0.1
+    rbuf = torch.randn(b * c_out * t + offset, generator=gen, device=dev).to(torch.bfloat16)
+    return x, w, bias, rbuf[offset:].view(b, c_out, t)
+
+
+def _sc_check(sc, got, x, w, bias, d, res) -> float:
+    """The kernel's output `got` against the plain version.  With acc the
+    float32 sum of the K = C_in k products and E = K 2^-22 sum |products|
+    (twice the worst-case error of a float32 sum of K terms, in any order,
+    rounded or truncated), asserted: the kernel's convolution alone (zero
+    bias, no residual) lies within one bfloat16 ulp of |acc| plus E of
+    RN(acc); `got` is, bit for bit, the plain bias and residual adds applied
+    to that convolution; and `got` lies within two ulps of the largest of
+    |acc|, |y| and |out| (y the conv with its bias) plus E of the plain
+    version, the two adds after a flip of RN(acc) adding one more at ties.
+    -> the largest |got - plain| in those ulps, E left out."""
+    k = w.shape[-1]
+    p = d * (k - 1) // 2
+    xp, wb = torch.nn.functional.pad(x, (p, p)).float(), w.to(torch.bfloat16).float()
+    acc = torch.nn.functional.conv1d(xp, wb, None, 1, 0, d)
+    err = torch.nn.functional.conv1d(xp.abs(), wb.abs(), None, 1, 0, d) * (x.shape[1] * k * 2.0**-22)
+
+    def ulp(v):
+        return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
+
+    conv = sc.same_conv(x, w, torch.zeros_like(bias), d)
+    rounded = acc.to(torch.bfloat16)
+    off = (conv.float() - rounded.float()).abs()
+    bar = ulp(torch.maximum(acc.abs(), rounded.float().abs())) + err
+    assert bool((off <= bar).all()), f"the convolution is off RN(acc) by {float((off - bar).max())} past its bar"
+    y_k = conv + bias.to(torch.bfloat16)[:, None]
+    assert torch.equal(got, y_k if res is None else res + y_k)
+    want = sc.same_conv_reference(x, w, bias, d, res)
+    y = sc.same_conv_reference(x, w, bias, d) if res is not None else want
+    u = ulp(torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs()))
+    off = (got.float() - want.float()).abs()
+    assert bool((off <= 2 * u + err).all())
+    return float((off / u).max())
+
+
+@pytest.mark.parametrize("c_in,c_out,k,d,residual", _SC_GEOMETRIES)
+@pytest.mark.parametrize("b,t,offset", [(2, 704, 0), (3, 301, 1)])
+def test_same_conv_is_the_plain_version_within_one_ulp(dev, c_in, c_out, k, d, residual, b, t, offset):
+    """Every codec geometry at a short T (copied in 16-byte pieces) and at a
+    ragged one read from
+    misaligned addresses, held to the plain version by ``_sc_check``; bit
+    for bit on a second call; one launch each."""
+    sc = _same_conv_ops()
+    x, w, bias, res = _sc_case(c_in, c_out, k, b, t, dev, seed=c_in + k + d, offset=offset)
+    res = res if residual else None
+    n = sc._KERNEL.launches
+    got = sc.same_conv(x, w, bias, d, res)
+    again = sc.same_conv(x, w, bias, d, res)
+    torch.cuda.synchronize()
+    assert sc._KERNEL.launches == n + 2 and got.dtype == torch.bfloat16 and got.shape == (b, c_out, t)
+    assert torch.equal(got, again)
+    _sc_check(sc, got, x, w, bias, d, res)
+
+
+@pytest.mark.parametrize("c_in,c_out,k,d,residual,t", sorted(_SC_FULL))
+def test_same_conv_at_the_full_batch(dev, c_in, c_out, k, d, residual, t):
+    """The narrowest and the widest layers at the 16 x 4 s batch's T."""
+    sc = _same_conv_ops()
+    x, w, bias, res = _sc_case(c_in, c_out, k, 16, t, dev, seed=t + k + d)
+    res = res if residual else None
+    got = sc.same_conv(x, w, bias, d, res)
+    _sc_check(sc, got, x, w, bias, d, res)
+    assert torch.equal(got, sc.same_conv(x, w, bias, d, res))
+
+
+@pytest.mark.parametrize("t", [1, 5, 27, 64])
+def test_same_conv_with_t_within_the_padding(dev, t):
+    """T at or below the padding (27 at k 7, d 9): every tap but the centre
+    reads zeros somewhere."""
+    sc = _same_conv_ops()
+    x, w, bias, res = _sc_case(48, 48, 7, 1, t, dev, seed=t)
+    got = sc.same_conv(x, w, bias, 9, res)
+    _sc_check(sc, got, x, w, bias, 9, res)
+
+
+def test_same_conv_refuses_what_it_does_not_take(dev):
+    """float32, an even k, channel counts off 16 and a padding past 32
+    raise; nothing launches."""
+    sc = _same_conv_ops()
+    x, w, bias, _ = _sc_case(48, 48, 7, 1, 50, dev, seed=0)
+    n = sc._KERNEL.launches
+    bad = [(x.float(), w, 1), (x, w[..., :6], 1), (x[:, :40], w[:, :40], 1), (x, w[:40], 1), (x, w, 11)]
+    for xi, wi, d in bad:
+        with pytest.raises(ValueError):
+            sc.same_conv(xi, wi, bias[: wi.shape[0]], d)
+    assert sc._KERNEL.launches == n
+
+
+@pytest.mark.parametrize("c_in,c_out,k,d,residual", [(48, 48, 7, 3, False), (96, 96, 1, 1, True),
+                                                     (32, 64, 3, 1, False)])
+def test_same_conv_gradient_against_plain_autograd(dev, c_in, c_out, k, d, residual):
+    """x, weight, bias and residual gradients through the op against
+    autograd of the plain version, within one bfloat16 ulp of the largest
+    of each."""
+    sc = _same_conv_ops()
+    x, w, bias, res = _sc_case(c_in, c_out, k, 3, 333, dev, seed=5)
+    g = torch.randn(3, c_out, 333, device=dev).to(torch.bfloat16)
+    ins = [x, w, bias] + ([res] if residual else [])
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fn(leaves[0], leaves[1], leaves[2], d, leaves[3] if residual else None)
+        return torch.autograd.grad(out, leaves, g)
+
+    n = sc._KERNEL.launches
+    got = grads(sc.same_conv)
+    assert sc._KERNEL.launches == n + 1
+    want = grads(sc.same_conv_reference)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= _bf16_ulp(float(b.float().abs().max()))
+
+
+def test_same_conv_under_no_grad_keeps_no_graph(dev):
+    """Under no_grad the op launches the kernel alone: no autograd node, no
+    other device operation."""
+    sc = _same_conv_ops()
+    x, w, bias, res = _sc_case(96, 96, 1, 2, 512, dev, seed=3)
+    w.requires_grad_()
+    sc.same_conv(x, w, bias, 1, res)  # the weight tables, built once
+    torch.cuda.synchronize()
+    n = sc._KERNEL.launches
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = sc.same_conv(x, w, bias, 1, res)
+        torch.cuda.synchronize()
+    assert out.grad_fn is None and not out.requires_grad and sc._KERNEL.launches == n + 1
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("same_conv" in k for k in names), names
+
+
+def test_bf16_codec_launches_the_kernel_fifty_times(dev):
+    """One bfloat16 encode and decode: 25 launches each; the latent and the
+    waveform within 5% rms of the plain versions' (the kernel moves
+    roundings only; 5% is the benchmark's limit on the bfloat16 decode
+    against float32)."""
+    from nawc_tpu_torch.codec.model import SnacCodec
+
+    sc = _same_conv_ops()
+    torch.manual_seed(0)
+    model = SnacCodec(CodecConfig(compute_dtype="bfloat16")).to(dev).eval()
+    wav = torch.randn(2, 24_576, device=dev) * 0.1
+    with torch.no_grad():
+        n = sc._KERNEL.launches
+        z = model.encoder(wav)
+        assert sc._KERNEL.launches == n + 25
+        y = model.decoder(z)
+        assert sc._KERNEL.launches == n + 50
+        with _lib.plain_versions():
+            z_p = model.encoder(wav)
+            y_p = model.decoder(z)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    assert rel(z, z_p) < 0.05 and rel(y, y_p) < 0.05, (rel(z, z_p), rel(y, y_p))
