@@ -52,7 +52,8 @@ def _mean_by(rows: list[dict], keys: tuple[str, ...], col: str) -> dict[tuple, f
 
 
 def main(argv=None) -> None:
-    from .common import DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers, load_audio_batch, load_codec
+    from .common import (CODEC_SIZES, DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers,
+                         load_audio_batch, load_codec)
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--mode", choices=["benchmark", "detector", "both"], default="both")
@@ -68,7 +69,7 @@ def main(argv=None) -> None:
     ap.add_argument("--attacks", nargs="*", default=None,
                     help="attack names (default: full suite incl. codec roundtrip)")
     ap.add_argument("--codec_ckpt", default="checkpoints/codec_24k.msgpack")
-    ap.add_argument("--codec_size", choices=["full", "small"], default="full")
+    ap.add_argument("--codec_size", choices=CODEC_SIZES, default="full")
     ap.add_argument("--out_dir", default="results")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--artifacts", type=int, default=0, help="save N artifact triplets")

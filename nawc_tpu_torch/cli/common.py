@@ -63,16 +63,22 @@ def load_audio_clips(
     return out
 
 
+CODEC_SIZES = ("full", "small", "snac44k")  # the --codec_size choices
+
+
 def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device = "cuda"):
-    """A CodecState: JAX's seed-0 init of the `size` config, with the
-    weights of `ckpt` when it exists."""
+    """A CodecState: JAX's seed-0 init of the `size` config (one of
+    :data:`CODEC_SIZES`; "snac44k" is SNAC 44 kHz's published
+    architecture), with the weights of `ckpt` when it exists."""
     from ..codec import load_codec as read_codec
     from ..codec import make_codec
     from ..utils.config import CodecConfig
 
-    cfg = CodecConfig() if size == "full" else CodecConfig(
+    if size not in CODEC_SIZES:
+        raise ValueError(f"load_codec: size {size!r} is none of {CODEC_SIZES}")
+    cfg = {"full": CodecConfig, "snac44k": CodecConfig.snac_44khz}.get(size, lambda: CodecConfig(
         encoder_dim=8, latent_dim=64, decoder_dim=64, codebook_size=128, codebook_dim=8
-    )
+    ))()
     if ckpt and Path(ckpt).exists():
         codec = read_codec(ckpt, cfg, device=device)
         print(f"[codec] restored weights from {ckpt}")

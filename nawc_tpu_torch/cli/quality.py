@@ -91,7 +91,8 @@ def embed_batched(wm, wav: torch.Tensor, msg: torch.Tensor | None, key, batch: i
 
 
 def main(argv=None) -> None:
-    from .common import DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers, load_audio_batch, load_codec
+    from .common import (CODEC_SIZES, DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers,
+                         load_audio_batch, load_codec)
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--results_dir", default=None, help="artifact tree with wav pairs")
@@ -101,7 +102,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--sample_rate", type=int, default=16_000)
     ap.add_argument("--codec_ckpt", default="checkpoints/codec_24k.msgpack")
-    ap.add_argument("--codec_size", choices=["full", "small"], default="full")
+    ap.add_argument("--codec_size", choices=CODEC_SIZES, default="full")
     ap.add_argument("--out_csv", default="results/quality_results.csv")
     ap.add_argument("--embed_batch", type=int, default=16,
                     help="embed sub-batch size: the semantic Adam-PGD embed holds "

@@ -40,7 +40,8 @@ def format_table(rows: list[dict], index: str, cols: tuple[str, ...], digits: in
 
 
 def main(argv=None) -> None:
-    from .common import DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers, load_audio_clips, load_codec
+    from .common import (CODEC_SIZES, DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers,
+                         load_audio_clips, load_codec)
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--audio_glob", default=DEFAULT_AUDIO_GLOB)
@@ -50,7 +51,7 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk_seconds", type=float, default=2.0)
     ap.add_argument("--sample_rate", type=int, default=16_000)
     ap.add_argument("--codec_ckpt", default="checkpoints/codec_24k.msgpack")
-    ap.add_argument("--codec_size", choices=["full", "small"], default="full")
+    ap.add_argument("--codec_size", choices=CODEC_SIZES, default="full")
     ap.add_argument("--out_dir", default="results/robustness")
     ap.add_argument("--sync", action="store_true",
                     help="use shift-robust sync detection when the watermark supports it")

@@ -20,7 +20,8 @@ from pathlib import Path
 
 
 def main(argv=None) -> None:
-    from .common import DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers, load_audio_batch, load_codec
+    from .common import (CODEC_SIZES, DEFAULT_AUDIO_GLOB, WM_CHOICES, build_watermarkers,
+                         load_audio_batch, load_codec)
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--audio_glob", default=DEFAULT_AUDIO_GLOB)
@@ -31,7 +32,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mc_samples", type=int, default=20)
     ap.add_argument("--noise_sigma", type=float, default=1e-3)
     ap.add_argument("--codec_ckpt", default="checkpoints/codec_24k.msgpack")
-    ap.add_argument("--codec_size", choices=["full", "small"], default="full")
+    ap.add_argument("--codec_size", choices=CODEC_SIZES, default="full")
     ap.add_argument("--out_dir", default="results/uncertainty")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -3,8 +3,9 @@
 
 :class:`CodecState` bundles the config with the module that holds the
 weights.  ``encode`` runs the fused residual-VQ kernel, as the JAX
-package's ``_encode`` does; ``roundtrip`` runs the module path, whose
-lookups go through the nearest-codebook kernel.
+package's ``_encode`` does, where it takes the strides (up to 8 levels whose
+strides divide its 24-frame tile; others run the module path); ``roundtrip``
+runs the module path, whose lookups go through the nearest-codebook kernel.
 
 The weights are frozen (``requires_grad=False``), so inference builds no
 autograd graph.  Callers who want float32 results on the card turn off TF32
@@ -18,8 +19,10 @@ import dataclasses
 from pathlib import Path
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from ..ops import rvq_fused
 from ..ops.rvq_fused import rvq_encode_fused
 from ..utils import flaxinit, jaxrand
 from ..utils.checkpoint import load_params
@@ -49,8 +52,11 @@ class CodecState:
         return self.model.decode_latent(z)
 
     def encode(self, wav: torch.Tensor) -> list[torch.Tensor]:
-        """(B, T) -> per-level codes, by the fused residual-VQ kernel."""
+        """(B, T) -> per-level codes, by the fused residual-VQ kernel where
+        it takes the strides, else by ``ResidualVQ.encode``."""
         z = self.model.encode_latent(wav)
+        if not rvq_fused.takes(self.cfg.vq_strides):
+            return self.model.quantizer.encode(z)
         return rvq_encode_fused(z, self.model.quantizer, self.cfg.vq_strides)
 
     def decode(
@@ -88,13 +94,17 @@ def flax_init_tree(model: SnacCodec, seed: int) -> dict:
     """The flax variables tree (numpy, flax layout) that the JAX package's
     ``make_codec(jax.random.PRNGKey(seed), cfg)`` initialises for this
     model's config: LeCun truncated-normal kernels, fan-in normal codebooks,
-    zero biases and Snake ``log_alpha``, and the decoder's output conv zero."""
+    zero biases and Snake ``log_alpha``, and the decoder's output conv zero;
+    SNAC's LayerNorms (no flax counterpart) at weight 1 and bias 0."""
     root = jaxrand.prng_key(seed)
 
     def codebook(path, mod):
         if isinstance(mod, VQLevel):
             return {"codebook": flaxinit.fan_in_normal(flaxinit.param_key(root, path),
                                                        tuple(mod.codebook.shape))}
+        if isinstance(mod, torch.nn.LayerNorm):
+            return {"weight": np.ones(mod.normalized_shape, np.float32),
+                    "bias": np.zeros(mod.normalized_shape, np.float32)}
         return None
 
     return convert.flax_init_tree(model, root, zero_kernels={("decoder", "Conv_1")}, own=codebook)
@@ -103,10 +113,12 @@ def flax_init_tree(model: SnacCodec, seed: int) -> dict:
 def make_codec(cfg: CodecConfig = CodecConfig(), device: str | torch.device = "cuda",
                seed: int = 0) -> CodecState:
     """A codec with the random weights of the JAX package's
-    ``make_codec(jax.random.PRNGKey(seed), cfg)``, drawn on the CPU."""
+    ``make_codec(jax.random.PRNGKey(seed), cfg)``, drawn on the CPU; its
+    noise blocks' keys (SNAC's) start from `seed` too."""
     dev = resolve_device(device)
     model = SnacCodec(cfg)
     model.load_state_dict(flax_to_state_dict(flax_init_tree(model, seed), model), strict=True)
+    model.seed_noise(seed)
     return _frozen(model, dev, cfg)
 
 

@@ -5,6 +5,13 @@ Public methods keep the JAX package's layouts: waveforms (B, T), latents
 (B, T', latent_dim), codes [(B, T'/stride_i)].  Inside, convolutions run in
 (B, C, T).  Module names follow flax's (``level_0``, ``EncoderBlock_2``, ...).
 
+In SNAC's layout (``cfg.layout == "snac"``, after the ``snac`` package's
+``Encoder`` and ``Decoder``) the encoder ends in windowed attention
+(``LocalMHA_0``) and a k7 conv ``DWConv_0`` (depthwise where
+``cfg.depthwise``), and the decoder starts with ``DWConv_0``, a conv
+``Conv_0`` (k1 after a depthwise conv, else k7) and ``LocalMHA_0``; its
+blocks hold noise blocks where ``cfg.noise_blocks``.
+
 The encoder and decoder compute in ``cfg.compute_dtype`` as the JAX modules
 do: a bfloat16 codec casts the waveform (encoder) or the latent (decoder) to
 bfloat16 and runs every conv and Snake in it; the latent comes out float32,
@@ -23,19 +30,32 @@ import torch.nn as nn
 from ..ops.rvq import nearest_codebook
 from ..utils import profiling
 from ..utils.config import CodecConfig
-from .layers import DecoderBlock, EncoderBlock, SameConv1d, Snake
+from .layers import DecoderBlock, EncoderBlock, LocalMHA, NoiseKey, SameConv1d, Snake
+
+
+def _dwconv(cfg: CodecConfig, dim: int) -> SameConv1d:
+    """SNAC's k7 conv at `dim` channels: depthwise where ``cfg.depthwise``."""
+    return SameConv1d(dim, dim, 7, groups=dim if cfg.depthwise else 1)
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: CodecConfig):
         super().__init__()
+        snac = cfg.layout == "snac"
         self.Conv_0 = SameConv1d(1, cfg.encoder_dim, 7)
         dim = cfg.encoder_dim
         for i, rate in enumerate(cfg.encoder_rates):
-            self.add_module(f"EncoderBlock_{i}", EncoderBlock(dim, dim * 2, rate))
+            self.add_module(f"EncoderBlock_{i}",
+                            EncoderBlock(dim, dim * 2, rate, depthwise=cfg.depthwise, snac=snac))
             dim *= 2
-        self.Snake_0 = Snake(dim)
-        self.Conv_1 = SameConv1d(dim, cfg.latent_dim, 3)
+        if snac:
+            if cfg.attn_window:
+                self.LocalMHA_0 = LocalMHA(dim, cfg.attn_window)
+            self.DWConv_0 = _dwconv(cfg, dim)
+        else:
+            self.Snake_0 = Snake(dim)
+            self.Conv_1 = SameConv1d(dim, cfg.latent_dim, 3)
+        self.snac = snac
         self.n_blocks = len(cfg.encoder_rates)
         self.dtype = cfg.compute_torch_dtype
 
@@ -45,17 +65,32 @@ class Encoder(nn.Module):
             h = self.Conv_0(x[:, None, :].to(self.dtype))
             for i in range(self.n_blocks):
                 h = getattr(self, f"EncoderBlock_{i}")(h)
-            h = self.Conv_1(self.Snake_0(h))
+            if self.snac:
+                if hasattr(self, "LocalMHA_0"):
+                    h = self.LocalMHA_0(h)
+                h = self.DWConv_0(h)
+            else:
+                h = self.Conv_1(self.Snake_0(h))
             return h.transpose(1, 2).float()
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: CodecConfig):
         super().__init__()
-        self.Conv_0 = SameConv1d(cfg.latent_dim, cfg.decoder_dim, 7)
+        snac = cfg.layout == "snac"
+        if snac and cfg.depthwise:
+            self.DWConv_0 = _dwconv(cfg, cfg.latent_dim)
+            self.Conv_0 = SameConv1d(cfg.latent_dim, cfg.decoder_dim, 1)
+        else:
+            self.Conv_0 = SameConv1d(cfg.latent_dim, cfg.decoder_dim, 7)
+        if snac and cfg.attn_window:
+            self.LocalMHA_0 = LocalMHA(cfg.decoder_dim, cfg.attn_window)
+        self.noise = NoiseKey() if cfg.noise_blocks else None
         dim = cfg.decoder_dim
         for i, rate in enumerate(cfg.decoder_rates):
-            self.add_module(f"DecoderBlock_{i}", DecoderBlock(dim, dim // 2, rate))
+            self.add_module(f"DecoderBlock_{i}",
+                            DecoderBlock(dim, dim // 2, rate, depthwise=cfg.depthwise, snac=snac,
+                                         noise=self.noise))
             dim //= 2
         self.Snake_0 = Snake(dim)
         self.Conv_1 = SameConv1d(dim, 1, 7)
@@ -65,7 +100,12 @@ class Decoder(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """(B, T/hop, latent_dim) -> (B, T) float32 waveform in [-1, 1]."""
         with profiling.annotate("codec.decode", z.device):
-            h = self.Conv_0(z.transpose(1, 2).to(self.dtype))
+            h = z.transpose(1, 2).to(self.dtype)
+            if hasattr(self, "DWConv_0"):
+                h = self.DWConv_0(h)
+            h = self.Conv_0(h)
+            if hasattr(self, "LocalMHA_0"):
+                h = self.LocalMHA_0(h)
             for i in range(self.n_blocks):
                 h = getattr(self, f"DecoderBlock_{i}")(h)
             h = self.Conv_1(self.Snake_0(h).float())
@@ -174,6 +214,11 @@ class SnacCodec(nn.Module):
         self.encoder = Encoder(cfg)
         self.quantizer = ResidualVQ(cfg)
         self.decoder = Decoder(cfg)
+
+    def seed_noise(self, seed: int) -> None:
+        """Restart the noise blocks' keys from `seed` (no-op without them)."""
+        if self.decoder.noise is not None:
+            self.decoder.noise.seed(seed)
 
     def forward(self, wav: torch.Tensor) -> dict:
         """Training forward: (B, T) -> dict with recon + VQ losses."""

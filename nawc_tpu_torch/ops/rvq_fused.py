@@ -102,6 +102,14 @@ def _rvq_encode_cuda(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
     return [c.reshape(b, t // s) for c, s in zip(torch.split(codes, sizes), strides)]
 
 
+MAX_LEVELS, TILE = 8, 24  # the kernel's level count and frame tile: every stride divides the tile
+
+
+def takes(strides) -> bool:
+    """Whether the kernel takes these levels' strides."""
+    return len(strides) <= MAX_LEVELS and all(s >= 1 and TILE % s == 0 for s in strides)
+
+
 def rvq_encode_fused(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
     """Full residual-VQ encode: z (B, T', D) -> per-level codes
     [(B, T'/s_i) int32].  ``quantizer`` is the codec's ``ResidualVQ``.
@@ -109,7 +117,8 @@ def rvq_encode_fused(z: torch.Tensor, quantizer, strides) -> list[torch.Tensor]:
     T' must divide by every stride (the codec's pad-to-chunk rule ensures
     it).  A CUDA tensor runs the fused kernel on tables packed once per
     quantizer (:func:`packed_tables`); it takes up to 8 levels whose strides
-    divide 24, and raises on others.  A CPU tensor runs the plain version."""
+    divide 24 (:func:`takes`), and raises on others.  A CPU tensor runs the
+    plain version."""
     strides = tuple(int(s) for s in strides)
     if _lib.use_kernel(z):
         return _rvq_encode_cuda(z, quantizer, strides)

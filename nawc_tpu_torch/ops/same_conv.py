@@ -43,36 +43,40 @@ def takes(x: torch.Tensor, c_in: int, c_out: int, k: int, stride: int, dilation:
             and c_out % 16 == 0)
 
 
-def same_conv_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dilation: int,
-                        residual: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, C_in, T) x, (C_out, C_in, k) weight and (C_out,) bias (any float
-    type; cast to x's) -> (B, C_out, T) in x's type, plus `residual`.  On the
-    card the float32 conv runs without TF32, as on the CPU."""
+def same_conv_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                        dilation: int, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, C_in, T) x, (C_out, C_in, k) weight and (C_out,) bias or None
+    (any float type; cast to x's) -> (B, C_out, T) in x's type, plus
+    `residual`.  On the card the float32 conv runs without TF32, as on the
+    CPU."""
     k = weight.shape[-1]
     p = dilation * (k - 1) // 2
     xp = F.pad(x, (p, p)) if p else x
-    w, b = weight.to(x.dtype), bias.to(x.dtype)
+    w, b = weight.to(x.dtype), None if bias is None else bias.to(x.dtype)
     no_tf32 = torch.backends.cudnn.flags(
         enabled=torch.backends.cudnn.enabled, benchmark=torch.backends.cudnn.benchmark,
         deterministic=torch.backends.cudnn.deterministic, allow_tf32=False)
     with no_tf32 if x.is_cuda else contextlib.nullcontext():
         if x.dtype == torch.bfloat16:
-            y = F.conv1d(xp.float(), w.float(), None, 1, 0, dilation).to(x.dtype) + b[:, None]
+            y = F.conv1d(xp.float(), w.float(), None, 1, 0, dilation).to(x.dtype)
+            y = y if b is None else y + b[:, None]
         else:
             y = F.conv1d(xp, w, b, 1, 0, dilation)
     return y if residual is None else residual + y
 
 
-def _tables(weight: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _tables(weight: torch.Tensor, bias: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's weights (k, C_out, C_in) bfloat16 and bias (C_out,)
-    float32 of bfloat16 values, kept until the parameters change."""
+    float32 of bfloat16 values (zero for a conv without bias, which adds
+    nothing), kept until the parameters change."""
     def make():
         with torch.no_grad():
             w = weight.detach().to(torch.bfloat16).permute(2, 0, 1).contiguous()
-            b = bias.detach().to(torch.bfloat16).float().contiguous()
+            b = (torch.zeros(weight.shape[0], device=weight.device) if bias is None
+                 else bias.detach().to(torch.bfloat16).float().contiguous())
         return w, b
 
-    return _lib.derived(weight, "same_conv", [weight, bias], make)
+    return _lib.derived(weight, "same_conv", [t for t in (weight, bias) if t is not None], make)
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None,
@@ -80,8 +84,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: 
     c_out, c_in, k = weight.shape
     if x.dtype != torch.bfloat16 or not x.is_cuda:
         raise ValueError(f"same_conv: expected a bfloat16 CUDA tensor, got {x.dtype} on {x.device}")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError(f"same_conv: weight on {weight.device}, bias on {bias.device}, x on {x.device}")
+    if weight.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError(f"same_conv: weight on {weight.device}, bias on "
+                         f"{None if bias is None else bias.device}, x on {x.device}")
     if x.dim() != 3 or x.shape[1] != c_in:
         raise ValueError(f"same_conv: x {tuple(x.shape)} for a weight of {c_in} input channels")
     if not takes(x, c_in, c_out, k, 1, dilation, 1):
@@ -122,7 +127,7 @@ class _SameConvFunction(torch.autograd.Function):
     def forward(ctx, x, weight, bias, residual, dilation):
         ctx.save_for_backward(x, weight)
         ctx.dilation = dilation
-        ctx.bias_dtype = bias.dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
         if _lib.use_kernel(x):
             return _forward_cuda(x, weight, bias, residual, dilation)
         return same_conv_reference(x, weight, bias, dilation, residual)
@@ -144,10 +149,10 @@ class _SameConvFunction(torch.autograd.Function):
         return dx, dw, db, (g if need_res else None), None
 
 
-def same_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dilation: int,
+def same_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dilation: int,
               residual: torch.Tensor | None = None) -> torch.Tensor:
     """The conv of a (B, C_in, T) bfloat16 activation with the (C_out, C_in,
-    k) weight and (C_out,) bias at SAME padding, plus `residual` (B, C_out,
+    k) weight and (C_out,) bias (or none) at SAME padding, plus `residual` (B, C_out,
     T) if given: the kernel on a CUDA tensor (or the call raises), with its
     weights laid out once per weight version; :func:`same_conv_reference` on
     the CPU.  A non-contiguous x or residual is made contiguous."""

@@ -8,6 +8,7 @@ package's ``compute_jnp_dtype`` becomes :attr:`CodecConfig.compute_torch_dtype`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -52,7 +53,34 @@ class CodecConfig:
     codebook_size: int = 4096
     codebook_dim: int = 8
     vq_strides: Tuple[int, ...] = (4, 2, 1)
-    noise_decoder: bool = True
+    noise_decoder: bool = True  # read by no code of either package (kept for field parity)
+    # SNAC's own layout ("snac"; the repo's is "nawc"): the encoder ends in windowed attention
+    # and a k7 conv (no Snake, no k3 conv), the decoder starts with a k7 and a k1 conv and
+    # windowed attention, strided and transposed convs pad ceil(s / 2) on both sides, and
+    # clips pad to hop * lcm(vq_strides[0], attn_window)
+    layout: str = "nawc"
+    depthwise: bool = False  # SNAC's depthwise-separable residual units (groups = channels)
+    attn_window: int = 0  # LocalMHA's window in frames; 0: no attention ("snac" layout only)
+    noise_blocks: bool = False  # SNAC's NoiseBlock after each decoder upsampling
+
+    def __post_init__(self):
+        if self.layout not in ("nawc", "snac"):
+            raise ValueError(f"CodecConfig: layout {self.layout!r} is neither 'nawc' nor 'snac'")
+        if self.layout == "nawc" and self.attn_window:
+            raise ValueError("CodecConfig: attention runs in the 'snac' layout only")
+        if self.layout == "snac" and self.latent_dim != self.encoder_dim * 2 ** len(self.encoder_rates):
+            raise ValueError(f"CodecConfig: SNAC's latent_dim is encoder_dim * 2^{len(self.encoder_rates)}"
+                             f" = {self.encoder_dim * 2 ** len(self.encoder_rates)}, got {self.latent_dim}")
+
+    @classmethod
+    def snac_44khz(cls, **overrides) -> "CodecConfig":
+        """hubertsiuzdak/snac_44khz's published config (its ``config.json``):
+        54.5 M parameters, 2.6 kbps."""
+        return cls(**{**dict(
+            sample_rate=44_100, encoder_dim=64, encoder_rates=(2, 3, 8, 8), latent_dim=1024,
+            decoder_dim=1536, decoder_rates=(8, 8, 3, 2), codebook_size=4096, codebook_dim=8,
+            vq_strides=(8, 4, 2, 1), layout="snac", depthwise=True, attn_window=32,
+            noise_blocks=True), **overrides})
 
     @property
     def compute_torch_dtype(self) -> torch.dtype:
@@ -69,7 +97,10 @@ class CodecConfig:
     @property
     def chunk(self) -> int:
         """Pad-to multiple in samples: ``hop * max(vq_strides)``, with the
-        reference's 4096 as a floor."""
+        reference's 4096 as a floor; in the "snac" layout SNAC's
+        ``preprocess`` rule, ``hop * lcm(vq_strides[0], attn_window)``."""
+        if self.layout == "snac":
+            return self.hop * math.lcm(self.vq_strides[0], self.attn_window or 1)
         return max(4096, self.hop * max(self.vq_strides))
 
     @property
