@@ -14,8 +14,8 @@ Phases, each printing its seconds:
    instantiation's SASS (by ``cuobjdump -sass``) no float64 conversion or
    arithmetic, and each Snake kernel's opcodes (the range checks, FCHK,
    and the calls among them) and SASS instructions per element are
-   printed; the stride-1 convolution kernel's functions must have no stack
-   frame and no spills;
+   printed; the stride-1 and the depthwise convolution kernels' functions
+   must have no stack frame and no spills;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -50,7 +50,10 @@ Phases, each printing its seconds:
    convolutions of one bfloat16 16 x 4 s encode and decode against its
    plain version (every output within its ulp bar, two runs bit for bit),
    with its device time beside the plain version's, cuDNN's bfloat16
-   ``F.conv1d`` and the bound;
+   ``F.conv1d`` and the bound; and the depthwise convolution kernel
+   (``csrc/dwconv.cu``) likewise at the 26 depthwise convolutions of one
+   SNAC 44 kHz 16 x 4 s encode and decode, beside ATen's grouped bfloat16
+   ``F.conv1d``;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -161,7 +164,13 @@ Phases, each printing its seconds:
    and lookup call held against plain, both kernels launched; each
    stage's device ms from the recorder's spans (``utils/profiling``) and
    one ``trace()`` of the sharded evaluation, reporting whether the trace
-   names the kernels and the program's spans.
+   names the kernels and the program's spans;
+16. SNAC bf16 main path: ``entry(codec)``'s ``fn`` with the SNAC 44 kHz
+   bfloat16 codec that the benchmark cell ``snac44k-roundtrip-bf16`` runs
+   (its configuration's codec block, weights drawn on the card by
+   ``port_bench/weights_snac.py``) on 16 clips x 4 s at 44.1 kHz: one call,
+   counted from zero after a warm call, must launch the depthwise kernel 26
+   times and the stride-1 kernel 29 times; its ms per call.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -245,11 +254,12 @@ JAXRAND_SASS = {"uniform": "keyed_kernelILb0E", "normal": "keyed_kernelILb1E",
 F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
 # the kernels of the main path (phase 4); the draw kernel's own path is the
 # sweep (phase 8), the Snake backward's the trainers (phase 13), the
-# stride-1 convolution's the bfloat16 codec (phase 9)
+# stride-1 convolution's the bfloat16 codec (phase 9), the depthwise
+# convolution's the SNAC bfloat16 main path (phase 16)
 MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake")
-BF16_ONLY = ("same_conv",)  # launched by bfloat16 codecs only
+BF16_ONLY = ("same_conv", "dwconv")  # launched by bfloat16 codecs only (dwconv: SNAC's)
 LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)",
-               "same_conv": "bf16 codec (phase 9)"}
+               "same_conv": "bf16 codec (phase 9)", "dwconv": "SNAC bf16 main path (phase 16)"}
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
@@ -1033,20 +1043,20 @@ def check_snake(dev, sass: dict[str, dict]) -> dict:
                                    bound_ms=f32["bb"], bound_by=f32["bby"], library_ms=None)}
 
 
-# ------------------------------------------------------------------ the stride-1 convolutions (phases 1, 2)
+# ------------------------------------------------------------------ the stride-1 and depthwise convolutions (phases 1, 2)
 
-def check_same_conv_build(log: str) -> None:
-    """Phase 1's check of the stride-1 convolution kernel: no stack frame and
-    no spills in any function of ``same_conv.cu`` (``-Xptxas -v``; only on a
-    fresh build)."""
-    mine = {n: v for n, v in ptxas_properties(log).items() if "same_conv_cu" in n}
+def check_clean_build(stem: str, log: str) -> None:
+    """Phase 1's check of a convolution kernel: no stack frame and no spills
+    in any function of ``<stem>.cu`` (``-Xptxas -v``; only on a fresh
+    build)."""
+    mine = {n: v for n, v in ptxas_properties(log).items() if f"{stem}_cu" in n}
     if log:
         check(len(mine) >= 1 and all(
             v.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
-            for v in mine.values()), f"same_conv: ptxas reports {mine}")
-        print(f"same_conv ptxas: {len(mine)} functions, 0-byte frames, no spills")
+            for v in mine.values()), f"{stem}: ptxas reports {mine}")
+        print(f"{stem} ptxas: {len(mine)} functions, 0-byte frames, no spills")
     else:
-        print("same_conv ptxas: the library was built before this run; nvcc printed nothing")
+        print(f"{stem} ptxas: the library was built before this run; nvcc printed nothing")
 
 
 def device_ms_retried(fn, tries: int = 3) -> float:
@@ -1122,6 +1132,69 @@ def check_same_conv(dev) -> dict:
           f"{100 * tot['bound'] / tot['ms']:.0f}% of it); largest {tot['ulps']:g} ulps off plain")
     return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
                 bound_by="bytes and operations, the larger a launch", library_ms=tot["lib"])
+
+
+def check_dwconv(dev) -> dict:
+    """The depthwise kernel against its plain version on the card at the 26
+    depthwise convs of one 16 x 4 s SNAC 44 kHz bfloat16 encode and decode
+    (each distinct geometry once, counted as often as the codec runs it):
+    every output within two bfloat16 ulps of the largest of |acc|, |y| and
+    |out| of plain (acc the float32 sum, y the rounded conv; a flip of
+    RN(acc) and the add after it) plus k 2^-22 sum |products| (two float32
+    sums of the k products in different orders), the largest difference
+    printed in those ulps; two runs bit for bit; device ms of the kernel, of
+    the plain version and of ATen's grouped bfloat16 ``F.conv1d`` at the
+    same padding (a yardstick only, never called by the port), and the
+    bound: x read and the output written once at 3.35 TB/s
+    (``counts_snac.dwconv_bytes``' yardstick).  -> the kernel's record."""
+    from nawc_tpu_torch.ops import dwconv as dw
+    from nawc_tpu_torch.tools.conv_layers import depthwise_geometries
+
+    counts: dict[tuple, int] = {}
+    for g in depthwise_geometries():
+        counts[g] = counts.get(g, 0) + 1
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, ulps=0.0, err=0.0)
+    for i, ((c, k, d, t), n) in enumerate(sorted(counts.items())):
+        gen = torch.Generator(device=dev).manual_seed(70 + i)
+        x = torch.randn((BATCH, c, t), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5
+        b = torch.randn((c,), generator=gen, device=dev) * 0.1
+        p = d * (k - 1) // 2
+        with torch.no_grad():
+            got = dw.dwconv(x, w, b, d)
+            want = dw.dwconv_reference(x, w, b, d)
+            wf = w.to(torch.bfloat16).float()
+            acc = torch.nn.functional.conv1d(x.float(), wf, None, 1, p, d, c)
+            y = dw.dwconv_reference(x, w, None, d)
+            scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
+            del acc, y
+            ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
+            del scale
+            off = (got.float() - want.float()).abs()
+            sums = torch.nn.functional.conv1d(x.float().abs(), wf.abs(), None, 1, p, d, c)
+            past = int((off > 2 * ulp + sums * (k * 2.0**-22)).sum())
+            ulps, err = float((off / ulp).max()), float(off.max())
+            del ulp, off, want, sums
+            check(torch.equal(got, dw.dwconv(x, w, b, d)), f"dwconv {c} d{d} T {t}: two runs differ")
+            ms = device_ms_retried(lambda: dw.dwconv(x, w, b, d))
+            with _lib.plain_versions():
+                plain_ms = device_ms_retried(lambda: dw.dwconv(x, w, b, d))
+            wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+            lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d, c))
+        check(past == 0, f"dwconv {c} d{d} T {t}: {past} outputs off plain past their bar")
+        bound_ms = dw.bound_bytes(BATCH, c, t, k) / PEAK_BYTES_PER_S * 1e3
+        print(f"dwconv {c} k{k} d{d} T {t} (x{n}): device {ms:.4f} ms, plain {plain_ms:.4f}, ATen "
+              f"F.conv1d {lib_ms:.4f}, bound {bound_ms:.4f} ({100 * bound_ms / ms:.1f}%); {ulps:g} ulps, "
+              f"{err:.3g} off plain")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bound", bound_ms)):
+            tot[key] += n * v
+        tot["ulps"], tot["err"] = max(tot["ulps"], ulps), max(tot["err"], err)
+        del x, w, b, got
+    print(f"dwconv, the 26 launches of one {BATCH} x {SECONDS} s SNAC 44 kHz encode and decode: "
+          f"{tot['ms']:.3f} ms (plain {tot['plain']:.3f}, ATen {tot['lib']:.3f}, bound {tot['bound']:.3f}: "
+          f"{100 * tot['bound'] / tot['ms']:.0f}% of it); largest {tot['ulps']:g} ulps off plain")
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+                bound_by="bytes", library_ms=tot["lib"])
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2249,6 +2322,44 @@ def quality_parallel_phase(dev, codec, wm, wav: torch.Tensor, msg: torch.Tensor,
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ phase 16
+
+SNAC_CONFIG = REPO / "port_bench" / "configs" / "snac44k-bf16.json"
+
+
+def snac_phase(dev, n_clips: int = BATCH, seconds: float = SECONDS, seed: int = 23) -> dict:
+    """The path of the benchmark cell ``snac44k-roundtrip-bf16``:
+    ``entry(codec)``'s ``fn`` (embed -> pad, SNAC encode, RVQ, decode with
+    noise -> detect) with the SNAC codec built as the cell builds it, on
+    `n_clips` x `seconds` s of seeded noise at 44.1 kHz.  After one warm
+    call the launch counts are reset; the next call must launch ``dwconv``
+    26 times (13 in the encoder, 13 in the decoder) and ``same_conv`` 29
+    times, and give finite outputs.  -> its launches and ms per call."""
+    from port_bench.weights_snac import make_codec as snac_codec
+
+    codec, _ = snac_codec(json.loads(SNAC_CONFIG.read_text())["codec"], seed, dev)
+    fn, (_, msg0) = entry(codec, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wav = torch.randn(n_clips, int(seconds * codec.cfg.sample_rate), generator=gen, device=dev) * 0.1
+    msg = torch.randint(0, 2, (n_clips, msg0.shape[1]), generator=gen, device=dev, dtype=torch.int32)
+    fn(wav, msg)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    outs = fn(wav, msg)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    print(f"one SNAC 44 kHz bf16 call, {n_clips} x {seconds} s: launches {launches}")
+    check(launches["dwconv"] == 26, f"one SNAC bf16 call launched dwconv {launches['dwconv']} times, not 26")
+    check(launches["same_conv"] == 29,
+          f"one SNAC bf16 call launched same_conv {launches['same_conv']} times, not 29")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs), "the SNAC bf16 call is not finite")
+    ms = wall_ms(lambda: fn(wav, msg), iters=5, warmup=1)
+    print(f"SNAC 44 kHz bf16 entry: {ms:.2f} ms a call ({n_clips * seconds / (ms / 1e3):.1f} s of audio a s)")
+    del fn, codec, outs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -2277,7 +2388,8 @@ def main() -> int:
         funcs = sass_functions(text)
         check_jaxrand_build(funcs, log)
         sass = check_snake_build(text, log)
-        check_same_conv_build(log)
+        check_clean_build("same_conv", log)
+        check_clean_build("dwconv", log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -2289,6 +2401,7 @@ def main() -> int:
             "jaxrand": check_jaxrand(dev),
             **check_snake(dev, sass),
             "same_conv": check_same_conv(dev),
+            "dwconv": check_dwconv(dev),
         }
 
     with phase("3 weights"):
@@ -2455,6 +2568,9 @@ def main() -> int:
     with phase("15 quality and parallel"):
         qp = quality_parallel_phase(dev, codec, wm, wav, msg, (marked, presence, bits), np.stack(x16))
 
+    with phase("16 SNAC bf16 main path"):
+        snac = snac_phase(dev)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the draw kernel replaces XLA's fusion of jax.random (threefry, erf_inv) in
     # the JAX package's noise draws, the Snake kernels XLA's fusion of
@@ -2465,9 +2581,10 @@ def main() -> int:
              "jaxrand": ("jaxrand.cu", "nawc_tpu/interp/uncertainty.py:28"),
              "snake": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
              "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
-             "same_conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py")}
+             "same_conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
+             "dwconv": ("dwconv.cu", "none: the JAX package has no depthwise convolution")}
     on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"],
-          "bf16 codec (phase 9)": bf16_launches}
+          "bf16 codec (phase 9)": bf16_launches, "SNAC bf16 main path (phase 16)": snac["launches"]}
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]
@@ -2491,6 +2608,7 @@ def main() -> int:
             "train_launches": train["launches"][n],
             "interp_launches": interp["launches"][n],
             "quality_parallel_launches": qp["launches"][n],
+            "snac_launches": snac["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

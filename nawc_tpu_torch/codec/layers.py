@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import dwconv as _dwconv
 from ..ops import jaxrand as _jaxrand
 from ..ops import same_conv as _same_conv
 from ..ops.snake import sin2_periodic as _sin2_periodic  # noqa: F401  (kept under its old name)
@@ -71,8 +72,11 @@ class SameConv1d(nn.Conv1d):
     ``snac=True`` pads a strided conv as SNAC's ``EncoderBlock`` does,
     ceil(s / 2) on both sides (flax's SAME pads 1 and 2 at stride 3, SNAC 2
     and 2; they agree at even strides).  A depthwise conv (``groups`` equal
-    to the channels, SNAC's) is a span ``codec.dwconv`` of its own and pads
-    inside PyTorch's grouped conv."""
+    to the channels, SNAC's) is a span ``codec.dwconv`` of its own; in
+    bfloat16, in the domain of ``ops.dwconv.takes`` (stride 1, k 7 at
+    dilation 1, 3 or 9), it is the op ``ops.dwconv``: on the card the kernel
+    ``csrc/dwconv.cu``, which pads and adds the bias itself; on the CPU the
+    same arithmetic as below."""
 
     def __init__(self, *args, snac: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -93,7 +97,10 @@ class SameConv1d(nn.Conv1d):
             return _same_conv.same_conv(x, self.weight, self.bias, d, residual)
         if self.groups > 1 and self.groups == self.in_channels == self.out_channels and s == 1:
             with profiling.annotate("codec.dwconv", x.device):
-                y = _conv(F.conv1d, x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups)
+                if _dwconv.takes(x, self.in_channels, self.out_channels, k, s, d, self.groups):
+                    y = _dwconv.dwconv(x, self.weight, self.bias, d)
+                else:
+                    y = _conv(F.conv1d, x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups)
                 return y if residual is None else residual + y
         left, right = self.pads(x.shape[-1])
         if left or right:

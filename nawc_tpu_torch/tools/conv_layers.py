@@ -1,17 +1,21 @@
 """Device time of each convolution layer of the codec, kernel by kernel.
 
-    python3 -m nawc_tpu_torch.tools.conv_layers [--dtype bfloat16] [--out layers.json]
+    python3 -m nawc_tpu_torch.tools.conv_layers [--codec codec24k|snac44k] [--dtype bfloat16]
+                                                [--out layers.json]
 
-Builds the codec at ``CodecConfig()``'s widths in the given compute type on
-the card (random weights: the kernels cuDNN picks depend on shapes alone,
-``cudnn.benchmark`` off), runs one encode and decode of a 16 x 4 s batch at
-24 kHz (98,304 samples, the benchmark's padded length), keeps each
+Builds the codec (``codec24k``: ``CodecConfig()``'s widths; ``snac44k``:
+``CodecConfig.snac_44khz()``) in the given compute type on the card (random
+weights: the kernels cuDNN picks depend on shapes alone, ``cudnn.benchmark``
+off), runs one encode and decode of a 16 x 4 s batch at the benchmark's
+padded length (98,304 samples at 24 kHz, 184,320 at 44.1 kHz), keeps each
 convolution module's inputs, and then profiles each module alone on them
 (``torch.profiler``, 3 calls after a warm one): its pads, casts, convolution
 and bias kernels.  Where a ``ResidualUnit`` adds ``x + y`` outside its
 convolutions, that add is profiled as a layer of its own.  Prints the
-device ms per call of each layer kind by kernel, and with ``--out`` writes
-every layer's row as JSON.  Runs on a CUDA device only.
+device ms per call of each layer kind by kernel, each depthwise layer's
+share of its byte bound (``ops.dwconv.bound_bytes`` at 3.35 TB/s), and
+with ``--out`` writes every layer's row as JSON.  Runs on a CUDA device
+only.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..codec.layers import ResidualUnit, SameConv1d, SameConvTranspose1d
 from ..codec.model import SnacCodec
+from ..ops import dwconv
 from ..utils.config import CodecConfig
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+CODECS = {"codec24k": (CodecConfig, 98_304), "snac44k": (CodecConfig.snac_44khz, 184_320)}
 
 
 def stride1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) -> list[tuple]:
@@ -53,12 +61,34 @@ def stride1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) 
     return out
 
 
+def depthwise_geometries(cfg: CodecConfig = CodecConfig.snac_44khz(),
+                         samples: int = 184_320) -> list[tuple]:
+    """(C, k, dilation, T) of the depthwise convolutions of one encode and
+    decode of `samples` samples in SNAC's layout (``cfg.depthwise``), in the
+    codec's order: each ResidualUnit's Conv_0 (k 7 at dilation 1, 3, 9), the
+    encoder's and the decoder's DWConv_0 (26 at ``snac_44khz()``)."""
+    if not cfg.depthwise:
+        return []
+    out, t, d = [], samples, cfg.encoder_dim
+    for rate in cfg.encoder_rates:
+        out += [(d, 7, dil, t) for dil in (1, 3, 9)]
+        d, t = d * 2, t // rate
+    out += [(d, 7, 1, t), (cfg.latent_dim, 7, 1, t)]
+    d = cfg.decoder_dim
+    for rate in cfg.decoder_rates:
+        d, t = d // 2, t * rate
+        out += [(d, 7, dil, t) for dil in (1, 3, 9)]
+    return out
+
+
 def _kind(path: str, mod, args, kwargs) -> str:
     x = args[0]
     k, s, d = mod.kernel_size[0], mod.stride[0], mod.dilation[0]
     c_in, c_out = mod.in_channels, mod.out_channels
     if isinstance(mod, SameConvTranspose1d):
         return f"ConvTranspose {c_in}->{c_out} s{s}"
+    if mod.groups > 1 and mod.groups == c_in == c_out:
+        return f"depthwise {c_in} k{k} d{d} T {x.shape[-1]}"
     if ".ResidualUnit_" in path and path.endswith("Conv_0"):
         return f"RU Conv_0 {c_in} k{k} d{d}"
     if ".ResidualUnit_" in path:
@@ -78,14 +108,16 @@ def _device_ms(fn, calls: int = 3) -> dict[str, float]:
         torch.cuda.synchronize()
     out: dict[str, float] = defaultdict(float)
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        # the program's spans (``codec.dwconv``) show on the device as annotations, not kernels
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             out[e.key] += e.self_device_time_total / 1e3 / calls
     return dict(out)
 
 
-def layer_rows(dtype: str, batch: int = 16, samples: int = 98_304) -> list[dict]:
+def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dict]:
     dev = torch.device("cuda")
-    cfg = CodecConfig(compute_dtype=dtype)
+    make, samples = CODECS[codec]
+    cfg = make(compute_dtype=dtype)
     model = SnacCodec(cfg).to(dev).eval()
     captured: list[tuple[str, torch.nn.Module, tuple, dict]] = []
     adds: list[tuple[str, torch.Tensor, torch.Tensor]] = []
@@ -110,6 +142,10 @@ def layer_rows(dtype: str, batch: int = 16, samples: int = 98_304) -> list[dict]
             ms = _device_ms(lambda: mod(*args, **kwargs))
             rows.append(dict(layer=path, kind=_kind(path, mod, args, kwargs),
                              shape=list(args[0].shape), kernels=ms, ms=sum(ms.values())))
+            if rows[-1]["kind"].startswith("depthwise"):
+                b, c, t = args[0].shape
+                nbytes = dwconv.bound_bytes(b, c, t, mod.kernel_size[0])
+                rows[-1]["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
         for path, x, y in adds:
             ms = _device_ms(lambda: x + y)
             rows.append(dict(layer=path + ".add", kind=f"RU x + y {x.shape[1]}", shape=list(x.shape),
@@ -119,7 +155,9 @@ def layer_rows(dtype: str, batch: int = 16, samples: int = 98_304) -> list[dict]
 
 def family(kernel: str) -> str:
     n = kernel.lower()
-    for key, name in (("same_conv", "same_conv (ours)"), ("implicit_convolve_sgemm", "implicit_convolve_sgemm"),
+    for key, name in (("same_conv", "same_conv (ours)"), ("dwconv", "dwconv (ours)"),
+                      ("conv_depthwise", "ATen depthwise"),
+                      ("implicit_convolve_sgemm", "implicit_convolve_sgemm"),
                       ("nchwtonhwc", "transposes"), ("nhwctonchw", "transposes"),
                       ("xmma", "tensor-core fprop"), ("cutlass", "tensor-core fprop"),
                       ("dgrad", "dgrad"), ("elementwise", "elementwise")):
@@ -130,6 +168,7 @@ def family(kernel: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--codec", default="codec24k", choices=tuple(CODECS))
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -138,14 +177,15 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = layer_rows(args.dtype)
+    rows = layer_rows(args.dtype, codec=args.codec)
     by_kind: dict[str, dict[str, float]] = defaultdict(lambda: defaultdict(float))
     count: dict[str, int] = defaultdict(int)
     for r in rows:
         count[r["kind"]] += 1
         for k, v in r["kernels"].items():
             by_kind[r["kind"]][family(k)] += v
-    print(f"{torch.cuda.get_device_name(0)}, {args.dtype}: device ms per 16 x 4 s call by layer kind")
+    print(f"{torch.cuda.get_device_name(0)}, {args.codec} {args.dtype}: device ms per 16 x 4 s call "
+          "by layer kind")
     total = defaultdict(float)
     for kind in sorted(by_kind, key=lambda k: -sum(by_kind[k].values())):
         fams = by_kind[kind]
@@ -155,6 +195,13 @@ def main(argv=None) -> int:
               + ", ".join(f"{f} {v:.3f}" for f, v in sorted(fams.items(), key=lambda kv: -kv[1])))
     print(f"  all layers: {sum(total.values()):.3f} ms: "
           + ", ".join(f"{f} {v:.3f}" for f, v in sorted(total.items(), key=lambda kv: -kv[1])))
+    dw = [r for r in rows if "bound_ms" in r]
+    if dw:
+        print(f"  depthwise layers, furthest from their byte bound first: {len(dw)} layers, "
+              f"{sum(r['ms'] for r in dw):.3f} ms, bound {sum(r['bound_ms'] for r in dw):.3f} ms")
+        for r in sorted(dw, key=lambda r: r["bound_ms"] / r["ms"]):
+            print(f"    {r['layer']:40s} {r['kind']:28s} {r['ms']:8.4f} ms  bound {r['bound_ms']:.4f} "
+                  f"({100 * r['bound_ms'] / r['ms']:.1f}%)")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=torch.cuda.get_device_name(0), dtype=args.dtype, rows=rows), f)

@@ -7,6 +7,7 @@ lacks, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from nawc_tpu_torch.codec.model import ResidualVQ
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm
-from nawc_tpu_torch.tools.conv_layers import stride1_geometries
+from nawc_tpu_torch.tools.conv_layers import depthwise_geometries, stride1_geometries
 from nawc_tpu_torch.utils.config import CodecConfig
 
 pytestmark = pytest.mark.cuda
@@ -727,3 +728,185 @@ def test_bf16_codec_launches_the_kernel_fifty_times(dev):
             y_p = model.decoder(z)
     rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
     assert rel(z, z_p) < 0.05 and rel(y, y_p) < 0.05, (rel(z, z_p), rel(y, y_p))
+
+
+# ---------------------------------------------------------------- the depthwise convolutions
+
+# SNAC 44 kHz's (C, k, d): k 7 at d 1, 3 and 9, the kernel's whole domain
+_DW_GEOMETRIES = sorted(set(g[:3] for g in depthwise_geometries()))
+
+
+def _dw_ops():
+    from nawc_tpu_torch.ops import dwconv as dw
+
+    return dw
+
+
+def _dw_case(c, k, b, t, dev, seed, offset=0):
+    """x at 1 sigma from element `offset` of a flat buffer (so that its
+    address and rows need not be aligned), the flax init's depthwise weight
+    scale (fan-in k) and a bias at 0.1, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn(b * c * t + offset, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5
+    bias = torch.randn(c, generator=gen, device=dev) * 0.1
+    return buf[offset:].view(b, c, t), w, bias
+
+
+def _dw_check(dw, got, x, w, bias, d) -> float:
+    """The kernel's output `got` against the float64 sum and the plain
+    version.  With acc the float64 sum of the k exact products and E = k
+    2^-22 sum |products| (twice the worst-case error of a float32 sum of k
+    terms, in any order), asserted: the kernel's convolution alone (no
+    bias) lies within one bfloat16 ulp of |acc| plus E of RN(acc); `got` is,
+    bit for bit, the plain bfloat16 bias add applied to that convolution;
+    and `got` lies within two ulps of the largest of |acc|, |y| and |got|
+    plus E of the plain version (a flip of RN(acc) and the add after it).
+    -> the largest |got - plain| in those ulps, E left out."""
+    c, k = w.shape[0], w.shape[-1]
+    p = d * (k - 1) // 2
+    xd, wd = x.double(), w.to(torch.bfloat16).double()
+    acc = torch.nn.functional.conv1d(xd, wd, None, 1, p, d, c)
+    err = torch.nn.functional.conv1d(xd.abs(), wd.abs(), None, 1, p, d, c) * (k * 2.0**-22)
+    del xd
+
+    def ulp(v):
+        return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
+
+    conv = dw.dwconv(x, w, None, d)
+    rounded = acc.float().to(torch.bfloat16).double()
+    off = (conv.double() - rounded).abs()
+    bar = ulp(torch.maximum(acc.abs(), rounded.abs())) + err
+    assert bool((off <= bar).all()), f"the convolution is off RN(acc) by {float((off - bar).max())} past its bar"
+    del off, bar, rounded
+    assert torch.equal(got, conv + bias.to(torch.bfloat16)[:, None])
+    want = dw.dwconv_reference(x, w, bias, d).double()
+    u = ulp(torch.maximum(torch.maximum(acc.abs(), want.abs()), got.double().abs()))
+    off = (got.double() - want).abs()
+    assert bool((off <= 2 * u + err).all())
+    return float((off / u).max())
+
+
+@pytest.mark.parametrize("c,k,d", _DW_GEOMETRIES)
+@pytest.mark.parametrize("b,t,offset", [(2, 704, 0), (3, 301, 1)])
+def test_dwconv_is_the_plain_version_within_one_ulp(dev, c, k, d, b, t, offset):
+    """Every SNAC geometry at a short T (copied in
+    16-byte pieces) and at a ragged one read from misaligned addresses,
+    held to the float64 sum and the plain version by ``_dw_check``; bit for
+    bit on a second call; one launch each."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(c, k, b, t, dev, seed=c + k + d, offset=offset)
+    n = dw._KERNEL.launches
+    got = dw.dwconv(x, w, bias, d)
+    again = dw.dwconv(x, w, bias, d)
+    torch.cuda.synchronize()
+    assert dw._KERNEL.launches == n + 2 and got.dtype == torch.bfloat16 and got.shape == (b, c, t)
+    assert torch.equal(got, again)
+    _dw_check(dw, got, x, w, bias, d)
+
+
+@pytest.mark.parametrize("c,d,t", [(96, 1, 184_320), (96, 9, 184_320), (1024, 1, 480), (768, 9, 3840)])
+def test_dwconv_at_the_full_batch(dev, c, d, t):
+    """The largest layer, and the shortest rows, at the 16 x 4 s batch's T."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(c, 7, 16, t, dev, seed=t + d)
+    got = dw.dwconv(x, w, bias, d)
+    _dw_check(dw, got, x, w, bias, d)
+    assert torch.equal(got, dw.dwconv(x, w, bias, d))
+
+
+@pytest.mark.parametrize("t", [1, 5, 8, 24, 27, 64])
+def test_dwconv_with_t_within_the_padding(dev, t):
+    """T at or below the padding (27 at k 7, d 9): every tap but the centre
+    reads zeros somewhere; T 8 and 24 through the 16-byte copies."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(64, 7, 2, t, dev, seed=t)
+    got = dw.dwconv(x, w, bias, 9)
+    _dw_check(dw, got, x, w, bias, 9)
+
+
+def test_dwconv_refuses_what_it_does_not_take(dev):
+    """float32, an even k, k 9, k 5, dilations 11 and 2, a channel
+    multiplier and a weight of other channels raise; nothing launches."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(64, 7, 1, 50, dev, seed=0)
+    n = dw._KERNEL.launches
+    w2 = torch.randn(64, 2, 7, device=dev)
+    bad = [(x.float(), w, 1), (x, w[..., :6], 1), (x, torch.randn(64, 1, 9, device=dev), 1),
+           (x, w[..., :5], 1), (x, w, 11), (x, w, 2), (x, w2, 1), (x[:, :40], w, 1)]
+    for xi, wi, d in bad:
+        with pytest.raises(ValueError):
+            dw.dwconv(xi, wi, bias, d)
+    assert dw._KERNEL.launches == n
+
+
+@pytest.mark.parametrize("c,k,d", [(64, 7, 3), (96, 7, 9), (48, 7, 1)])
+def test_dwconv_gradient_against_plain_autograd(dev, c, k, d):
+    """x, weight and bias gradients through the op against autograd of the
+    plain version, within one bfloat16 ulp of the largest of each."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(c, k, 3, 333, dev, seed=5)
+    g = torch.randn(3, c, 333, device=dev).to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        return torch.autograd.grad(fn(leaves[0], leaves[1], leaves[2], d), leaves, g)
+
+    n = dw._KERNEL.launches
+    got = grads(dw.dwconv)
+    assert dw._KERNEL.launches == n + 1
+    want = grads(dw.dwconv_reference)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= _bf16_ulp(float(b.float().abs().max()))
+
+
+def test_dwconv_under_no_grad_keeps_no_graph(dev):
+    """Under no_grad the op launches the kernel alone: no autograd node, no
+    other device operation.  The profiler window idles 0.1 s before the
+    call, and is opened again (up to three windows) where it recorded no
+    device operation at all: on the card a window now and then loses its
+    first records."""
+    dw = _dw_ops()
+    x, w, bias = _dw_case(128, 7, 2, 4096, dev, seed=3)
+    w.requires_grad_()
+    dw.dwconv(x, w, bias, 3)  # the taps, laid out once
+    torch.cuda.synchronize()
+    for _ in range(3):
+        n = dw._KERNEL.launches
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            out = dw.dwconv(x, w, bias, 3)
+            torch.cuda.synchronize()
+        assert out.grad_fn is None and not out.requires_grad and dw._KERNEL.launches == n + 1
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert names and all("dwconv" in k for k in names), names
+
+
+def test_snac_codec_launches_the_kernel_twenty_six_times(dev):
+    """One SNAC 44 kHz bfloat16 encode and decode: 13 launches each; the
+    latent and the waveform within 5% rms of the plain versions' (the kernel
+    moves roundings only)."""
+    from nawc_tpu_torch.codec.model import SnacCodec
+
+    dw = _dw_ops()
+    torch.manual_seed(0)
+    model = SnacCodec(CodecConfig.snac_44khz(compute_dtype="bfloat16")).to(dev).eval()
+    wav = torch.randn(2, 12_288, device=dev) * 0.1
+    with torch.no_grad():
+        n = dw._KERNEL.launches
+        z = model.encoder(wav)
+        assert dw._KERNEL.launches == n + 13
+        model.seed_noise(1)
+        y = model.decoder(z)
+        assert dw._KERNEL.launches == n + 26
+        with _lib.plain_versions():
+            z_p = model.encoder(wav)
+            model.seed_noise(1)
+            y_p = model.decoder(z)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    assert rel(z, z_p) < 0.05 and rel(y, y_p) < 0.05, (rel(z, z_p), rel(y, y_p))
+
