@@ -1084,6 +1084,7 @@ def check_same_conv(dev) -> dict:
     launch the larger of its bytes at 3.35 TB/s and FLOPs at 989 TFLOP/s,
     summed.  -> the kernel's record."""
     from nawc_tpu_torch.ops import same_conv as sc
+    from nawc_tpu_torch.ops.conv import conv1d
     from nawc_tpu_torch.tools.conv_layers import stride1_geometries
 
     counts: dict[tuple, int] = {}
@@ -1096,13 +1097,18 @@ def check_same_conv(dev) -> dict:
         w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
         b = torch.randn((c_out,), generator=gen, device=dev) * 0.1
         res = torch.randn((BATCH, c_out, t), generator=gen, device=dev).to(torch.bfloat16) if residual else None
+        p = d * (k - 1) // 2
+
+        def op(r):  # the conv op at SAME padding: the kernel, or the plain version under plain_versions
+            return conv1d(x, w, b, 1, lambda n: (p, p), d, 1, r)
+
         with torch.no_grad():
-            got = sc.same_conv(x, w, b, d, res)
-            want = sc.same_conv_reference(x, w, b, d, res)
-            p = d * (k - 1) // 2
+            got = op(res)
+            with _lib.plain_versions():
+                want = op(res)
+                y = op(None) if residual else want
             acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float(),
                                              w.to(torch.bfloat16).float(), None, 1, 0, d)
-            y = sc.same_conv_reference(x, w, b, d) if residual else want
             scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
             ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
             off = (got.float() - want.float()).abs()
@@ -1111,10 +1117,10 @@ def check_same_conv(dev) -> dict:
             past = int((off > 2 * ulp + sums * (c_in * k * 2.0**-22)).sum())
             ulps, err = float((off / ulp).max()), float(off.max())
             del acc, y, scale, ulp, off, want, sums
-            check(torch.equal(got, sc.same_conv(x, w, b, d, res)), f"same_conv {c_in} k{k} d{d}: two runs differ")
-            ms = device_ms_retried(lambda: sc.same_conv(x, w, b, d, res))
+            check(torch.equal(got, op(res)), f"same_conv {c_in} k{k} d{d}: two runs differ")
+            ms = device_ms_retried(lambda: op(res))
             with _lib.plain_versions():
-                plain_ms = device_ms_retried(lambda: sc.same_conv(x, w, b, d, res))
+                plain_ms = device_ms_retried(lambda: op(res))
             wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
             lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d))
         check(past == 0, f"same_conv {c_in} k{k} d{d}: {past} outputs off plain past their bar")
@@ -1148,6 +1154,7 @@ def check_dwconv(dev) -> dict:
     bound: x read and the output written once at 3.35 TB/s
     (``counts_snac.dwconv_bytes``' yardstick).  -> the kernel's record."""
     from nawc_tpu_torch.ops import dwconv as dw
+    from nawc_tpu_torch.ops.conv import conv1d
     from nawc_tpu_torch.tools.conv_layers import depthwise_geometries
 
     counts: dict[tuple, int] = {}
@@ -1160,12 +1167,16 @@ def check_dwconv(dev) -> dict:
         w = torch.randn((c, 1, k), generator=gen, device=dev) / k ** 0.5
         b = torch.randn((c,), generator=gen, device=dev) * 0.1
         p = d * (k - 1) // 2
+
+        def op(bias):  # the conv op as SameConv1d pads: the kernel, or the plain version under plain_versions
+            return conv1d(x, w, bias, 1, p, d, c)
+
         with torch.no_grad():
-            got = dw.dwconv(x, w, b, d)
-            want = dw.dwconv_reference(x, w, b, d)
+            got = op(b)
+            with _lib.plain_versions():
+                want, y = op(b), op(None)
             wf = w.to(torch.bfloat16).float()
             acc = torch.nn.functional.conv1d(x.float(), wf, None, 1, p, d, c)
-            y = dw.dwconv_reference(x, w, None, d)
             scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
             del acc, y
             ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
@@ -1175,10 +1186,10 @@ def check_dwconv(dev) -> dict:
             past = int((off > 2 * ulp + sums * (k * 2.0**-22)).sum())
             ulps, err = float((off / ulp).max()), float(off.max())
             del ulp, off, want, sums
-            check(torch.equal(got, dw.dwconv(x, w, b, d)), f"dwconv {c} d{d} T {t}: two runs differ")
-            ms = device_ms_retried(lambda: dw.dwconv(x, w, b, d))
+            check(torch.equal(got, op(b)), f"dwconv {c} d{d} T {t}: two runs differ")
+            ms = device_ms_retried(lambda: op(b))
             with _lib.plain_versions():
-                plain_ms = device_ms_retried(lambda: dw.dwconv(x, w, b, d))
+                plain_ms = device_ms_retried(lambda: op(b))
             wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
             lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d, c))
         check(past == 0, f"dwconv {c} d{d} T {t}: {past} outputs off plain past their bar")

@@ -26,25 +26,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import dwconv as _dwconv
 from ..ops import jaxrand as _jaxrand
-from ..ops import same_conv as _same_conv
-from ..ops.snake import sin2_periodic as _sin2_periodic  # noqa: F401  (kept under its old name)
+from ..ops.conv import conv1d, conv_native
 from ..ops.snake import snake
 from ..utils import jaxrand, profiling
-
-
-def _conv(op, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, *args) -> torch.Tensor:
-    """``op(x, weight, bias, *args)`` in the dtype of `x`.  A bfloat16 conv
-    on the CPU runs as a float32 conv of the bfloat16 values, rounded once,
-    then the bias added in bfloat16, as XLA's CPU computes flax's conv: the
-    oneDNN bfloat16 conv of PyTorch's CPU build returns wrong values at some
-    strided shapes (stride 4, kernel 8)."""
-    w, b = weight.to(x.dtype), None if bias is None else bias.to(x.dtype)
-    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
-        y = op(x.float(), w.float(), None, *args).to(x.dtype)
-        return y if b is None else y + b[:, None]
-    return op(x, w, b, *args)
 
 
 class Snake(nn.Module):
@@ -62,21 +47,15 @@ class Snake(nn.Module):
 
 class SameConv1d(nn.Conv1d):
     """``nn.Conv1d`` with flax's "SAME" padding (any stride, dilation or
-    group count), plus `residual` where given.  A bfloat16 conv in the
-    domain of ``ops.same_conv.takes`` (stride 1, one group, odd k <= 7,
-    padding <= 32, channel counts multiples of 16) is the op
-    ``ops.same_conv``: on the card the
-    kernel ``csrc/same_conv.cu``, which pads, adds the bias and the
-    residual itself; on the CPU the same arithmetic as below.
+    group count), plus `residual` where given.  The conv is
+    ``ops.conv.conv1d``, which chooses between the kernels of ``csrc/``
+    (``same_conv.cu``, ``dwconv.cu``), the plain version and cuDNN.
 
     ``snac=True`` pads a strided conv as SNAC's ``EncoderBlock`` does,
     ceil(s / 2) on both sides (flax's SAME pads 1 and 2 at stride 3, SNAC 2
     and 2; they agree at even strides).  A depthwise conv (``groups`` equal
-    to the channels, SNAC's) is a span ``codec.dwconv`` of its own; in
-    bfloat16, in the domain of ``ops.dwconv.takes`` (stride 1, k 7 at
-    dilation 1, 3 or 9), it is the op ``ops.dwconv``: on the card the kernel
-    ``csrc/dwconv.cu``, which pads and adds the bias itself; on the CPU the
-    same arithmetic as below."""
+    to the channels, SNAC's) at stride 1 is padded d (k - 1) / 2 on both
+    sides inside the conv, in a span ``codec.dwconv`` of its own."""
 
     def __init__(self, *args, snac: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -93,20 +72,10 @@ class SameConv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
-        if _same_conv.takes(x, self.in_channels, self.out_channels, k, s, d, self.groups):
-            return _same_conv.same_conv(x, self.weight, self.bias, d, residual)
         if self.groups > 1 and self.groups == self.in_channels == self.out_channels and s == 1:
             with profiling.annotate("codec.dwconv", x.device):
-                if _dwconv.takes(x, self.in_channels, self.out_channels, k, s, d, self.groups):
-                    y = _dwconv.dwconv(x, self.weight, self.bias, d)
-                else:
-                    y = _conv(F.conv1d, x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups)
-                return y if residual is None else residual + y
-        left, right = self.pads(x.shape[-1])
-        if left or right:
-            x = F.pad(x, (left, right))
-        y = _conv(F.conv1d, x, self.weight, self.bias, s, 0, d, self.groups)
-        return y if residual is None else residual + y
+                return conv1d(x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups, residual)
+        return conv1d(x, self.weight, self.bias, s, self.pads, d, self.groups, residual)
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):
@@ -134,8 +103,8 @@ class SameConvTranspose1d(nn.ConvTranspose1d):
         self.trim = stride % 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride, self.padding,
-                  self.output_padding)
+        y = conv_native(F.conv_transpose1d, x, self.weight, self.bias, self.stride, self.padding,
+                        self.output_padding)
         return y[..., : y.shape[-1] - self.trim] if self.trim else y
 
 

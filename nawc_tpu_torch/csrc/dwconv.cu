@@ -5,8 +5,8 @@
 // for a contiguous bfloat16 x (B, C, T), k = 7 and dilation d = 1, 3 or 9
 // (SNAC's), p = 3 d; w holds (C, 7) float32 taps and bias (C) float32,
 // both bfloat16 values, or bias is null (no add).  The rounding points are
-// those of the codec's plain path (nawc_tpu_torch/ops/dwconv.py::
-// dwconv_reference): the products of bfloat16 values are exact in float32,
+// those of the codec's plain path (nawc_tpu_torch/ops/conv.py::
+// conv_plain): the products of bfloat16 values are exact in float32,
 // summed in float32 (tap by tap, j = 0 first), rounded once to bfloat16,
 // then the bias added in bfloat16.  Only the float32 summation order
 // differs from the plain version's.  Two runs give the same bits.

@@ -6,7 +6,7 @@
 // for a contiguous bfloat16 x (B, Cin, T), odd k <= 7, any dilation d with
 // p = d (k - 1) / 2 <= 32, Cin and Cout multiples of 16; bias is float32
 // holding bfloat16 values.  The rounding points are those of the codec's
-// plain path (nawc_tpu_torch/ops/same_conv.py::same_conv_reference): the
+// plain path (nawc_tpu_torch/ops/conv.py::conv_plain): the
 // convolution rounds once to bfloat16, the bias is added in bfloat16, then
 // ResidualUnit's x + y.  Only the float32 accumulation order differs.
 //

@@ -19,7 +19,7 @@ from nawc_tpu.utils.config import CodecConfig as JaxCodecConfig
 from nawc_tpu_torch.attacks.codec import codec_roundtrip
 from nawc_tpu_torch.codec import load_codec, make_codec
 from nawc_tpu_torch.codec.convert import flax_to_state_dict
-from nawc_tpu_torch.codec.layers import _sin2_periodic
+from nawc_tpu_torch.ops.snake import sin2_periodic
 from nawc_tpu_torch.utils.config import CodecConfig
 
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / "codec_24k.msgpack"
@@ -38,7 +38,7 @@ def test_sin2_polynomial_matches():
     from nawc_tpu.codec.layers import _sin2_periodic as jax_sin2
 
     z = np.linspace(-40, 40, 100_001).astype(np.float32)
-    np.testing.assert_allclose(_sin2_periodic(t(z)).numpy(), np.asarray(jax_sin2(jnp.asarray(z))),
+    np.testing.assert_allclose(sin2_periodic(t(z)).numpy(), np.asarray(jax_sin2(jnp.asarray(z))),
                                atol=1e-6)
 
 

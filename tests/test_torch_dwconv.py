@@ -1,10 +1,12 @@
-"""The plain version of the depthwise convolution op (``ops.dwconv``)
-against the codec's own path, and the dispatch of ``SameConv1d`` to the op.
+"""The convolution op (``ops.conv``) on the CPU at the convs that the
+depthwise kernel (``ops.dwconv``) takes, and the routes of a depthwise
+``SameConv1d``.
 
-``dwconv_reference`` is the arithmetic that ``SameConv1d`` had for a
-depthwise conv before the op (``layers._conv`` at padding d (k - 1) / 2): on
-the CPU the two must agree bit for bit at every geometry of SNAC's depthwise
-convs, so that a SNAC codec encodes and decodes on the CPU as it did.
+On the CPU the op must be, bit for bit at every geometry of SNAC's depthwise
+convs, the arithmetic written out in :func:`_want` (a float32 grouped conv
+of the bfloat16 values at padding d (k - 1) / 2, rounded once, the bias
+added in bfloat16), so that a SNAC codec encodes and decodes on the CPU as
+it did.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from nawc_tpu_torch.codec import layers
 from nawc_tpu_torch.codec.model import SnacCodec
+from nawc_tpu_torch.ops import conv as conv_op
 from nawc_tpu_torch.ops import dwconv as dw
 from nawc_tpu_torch.tools.conv_layers import depthwise_geometries
 from nawc_tpu_torch.utils import profiling
@@ -32,10 +35,39 @@ def _case(c, k, b, t, seed, dtype=torch.bfloat16):
     return x, w, bias
 
 
-def _old_path(x, w, bias, d):
-    """SameConv1d's depthwise body before the op."""
-    k = w.shape[-1]
-    return layers._conv(F.conv1d, x, w, bias, 1, d * (k - 1) // 2, d, w.shape[0])
+def _want(x, w, bias, stride, padding, d, groups):
+    """The conv at `padding` (an int inside the conv, a pair by F.pad
+    before it): in bfloat16 a float32 conv of the bfloat16 values, rounded
+    once, then the bias added in bfloat16; in float32 and float64 the conv
+    with its bias."""
+    if isinstance(padding, tuple):
+        x, padding = F.pad(x, padding), 0
+    wx, bx = w.to(x.dtype), None if bias is None else bias.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        y = F.conv1d(x.float(), wx.float(), None, stride, padding, d, groups).to(x.dtype)
+        return y if bx is None else y + bx[:, None]
+    return F.conv1d(x, wx, bx, stride, padding, d, groups)
+
+
+def _depthwise(x, w, bias, d):
+    """A depthwise conv at SAME padding d (k - 1) / 2 on both sides."""
+    return _want(x, w, bias, 1, d * (w.shape[-1] - 1) // 2, d, w.shape[0])
+
+
+class _Taken:
+    """Records what ``dwconv.takes`` answers ``ops.conv.conv1d``: True where
+    the op routes the conv to the depthwise kernel (on the CPU, to its plain
+    version)."""
+
+    def __init__(self, monkeypatch):
+        self.answers = []
+        takes = dw.takes
+
+        def spy(*args):
+            self.answers.append(takes(*args))
+            return self.answers[-1]
+
+        monkeypatch.setattr(dw, "takes", spy)
 
 
 @pytest.mark.parametrize("length", ["ragged", "within the padding", "one sample"])
@@ -47,36 +79,26 @@ def test_reference_is_the_codec_path_bit_for_bit(c, d, length):
     b, t = {"ragged": (2, 37), "within the padding": (1, 3 * d), "one sample": (1, 1)}[length]
     x, w, bias = _case(c, 7, b, t, seed=c + d + t)
     for bi in (bias, None):
-        want = _old_path(x, w, bi, d)
-        got = dw.dwconv_reference(x, w, bi, d)
+        want = _depthwise(x, w, bi, d)
+        got = conv_op.conv1d(x, w, bi, 1, 3 * d, d, c)
         assert got.dtype == torch.bfloat16 and got.shape == (b, c, t)
         assert torch.equal(got, want)
-        assert torch.equal(dw.dwconv(x, w, bi, d), want)
+        assert torch.equal(conv_op._KernelConv.apply(x, w, bi, None, dw, 3 * d, d, c), want)
     conv = layers.SameConv1d(c, c, 7, dilation=d, groups=c)
     with torch.no_grad():
         conv.weight.copy_(w)
         conv.bias.copy_(bias)
-        assert torch.equal(conv(x), _old_path(x, w, bias, d))
-
-
-class _Spy:
-    def __init__(self, monkeypatch):
-        self.calls = 0
-        real = dw.dwconv
-
-        def spy(*args, **kwargs):
-            self.calls += 1
-            return real(*args, **kwargs)
-
-        monkeypatch.setattr(dw, "dwconv", spy)
+        assert torch.equal(conv(x), _depthwise(x, w, bias, d))
 
 
 @pytest.mark.parametrize("case", ["float32", "stride 2", "groups 1", "groups 2", "even k", "padding 33",
                                   "k 5", "dilation 2"])
 def test_dispatch_leaves_the_rest_on_the_old_path(monkeypatch, case):
     """Float32, strided, dense, two-group, even-k and over-padded convs, and
-    depthwise convs off k 7 at dilation 1, 3 or 9, never reach the op;
-    their outputs are those of the path without it."""
+    depthwise convs off k 7 at dilation 1, 3 or 9, take the route of no
+    kernel; their outputs are the arithmetic written out in ``_want``: a
+    depthwise conv at stride 1 padded d (k - 1) // 2 on both sides inside
+    the conv (even k too), any other conv by SAME padding before it."""
     kw = dict(c=48, k=7, stride=1, groups=48, d=1, dtype=torch.bfloat16)
     kw.update({"float32": dict(dtype=torch.float32), "stride 2": dict(stride=2, k=4),
                "groups 1": dict(groups=1), "groups 2": dict(groups=2), "even k": dict(k=4),
@@ -85,25 +107,29 @@ def test_dispatch_leaves_the_rest_on_the_old_path(monkeypatch, case):
     conv = layers.SameConv1d(kw["c"], kw["c"], kw["k"], stride=kw["stride"], dilation=kw["d"],
                              groups=kw["groups"])
     x = torch.randn(2, kw["c"], 41).to(kw["dtype"])
-    with torch.no_grad(), monkeypatch.context() as m:
-        m.setattr(dw, "takes", lambda *a: False)
-        want = conv(x)
-    spy = _Spy(monkeypatch)
+    s, k, d, groups = kw["stride"], kw["k"], kw["d"], kw["groups"]
+    if groups == kw["c"] and s == 1:
+        padding = d * (k - 1) // 2
+    else:
+        total = max((-(-41 // s) - 1) * s + d * (k - 1) + 1 - 41, 0)
+        padding = (total // 2, total - total // 2)
+    want = _want(x, conv.weight, conv.bias, s, padding, d, groups)
+    taken = _Taken(monkeypatch)
     before = profiling.total("launches.dwconv")
     with torch.no_grad():
         y = conv(x)
-    assert spy.calls == 0 and profiling.total("launches.dwconv") == before
+    assert not any(taken.answers) and profiling.total("launches.dwconv") == before
     assert torch.equal(y, want)
 
 
 def test_cpu_bfloat16_takes_the_op_and_launches_nothing(monkeypatch):
-    spy = _Spy(monkeypatch)
+    taken = _Taken(monkeypatch)
     conv = layers.SameConv1d(64, 64, 7, dilation=9, groups=64)
     x = torch.randn(1, 64, 20).to(torch.bfloat16)
     before = profiling.total("launches.dwconv")
     with torch.no_grad():
         conv(x)
-    assert spy.calls == 1 and profiling.total("launches.dwconv") == before
+    assert taken.answers == [True] and profiling.total("launches.dwconv") == before
 
 
 @pytest.mark.parametrize("c,k,d,with_bias", [(16, 7, 3, True), (8, 3, 1, False), (12, 5, 2, True)])
@@ -121,8 +147,8 @@ def test_function_gradient_is_autograd_of_the_plain_path(c, k, d, with_bias):
         out = fn(leaves[0], leaves[1], leaves[2] if with_bias else None, d)
         return out, torch.autograd.grad(out, leaves, g)
 
-    out, got = grads(dw._DwConvFunction.apply)
-    want_out, want = grads(_old_path)
+    out, got = grads(lambda x, w, b, d: conv_op._KernelConv.apply(x, w, b, None, dw, d * (k - 1) // 2, d, c))
+    want_out, want = grads(_depthwise)
     assert torch.equal(out, want_out)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
@@ -170,7 +196,8 @@ SMALL = dict(encoder_dim=8, encoder_rates=(2, 3, 2, 2), latent_dim=128, decoder_
 
 def test_snac_codec_encodes_and_decodes_as_before(monkeypatch):
     """A bfloat16 SNAC codec at a test size: its encode and decode through
-    the op (26 calls) equal, bit for bit, those of the path without it."""
+    the op (26 depthwise convs that the kernel takes) equal, bit for bit,
+    those of the codec whose depthwise convs are ``_depthwise``."""
     torch.manual_seed(3)
     model = SnacCodec(CodecConfig.snac_44khz(**SMALL)).eval()
     for p in model.parameters():  # biases and Snake alphas off zero too
@@ -183,10 +210,17 @@ def test_snac_codec_encodes_and_decodes_as_before(monkeypatch):
             z = model.encoder(wav)
             return z, model.decoder(z)
 
+    forward = layers.SameConv1d.forward
+
+    def written_out(self, x, residual=None):
+        if self.groups > 1 and self.groups == self.in_channels == self.out_channels:
+            return _depthwise(x, self.weight, self.bias, self.dilation[0])
+        return forward(self, x, residual)
+
     with monkeypatch.context() as m:
-        m.setattr(dw, "takes", lambda *a: False)
+        m.setattr(layers.SameConv1d, "forward", written_out)
         z0, y0 = roundtrip()
-    spy = _Spy(monkeypatch)
+    taken = _Taken(monkeypatch)
     z, y = roundtrip()
-    assert spy.calls == 26
+    assert sum(taken.answers) == 26
     assert torch.equal(z, z0) and torch.equal(y, y0)

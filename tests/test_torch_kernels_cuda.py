@@ -16,6 +16,7 @@ import torch
 
 from nawc_tpu_torch.codec.model import ResidualVQ
 from nawc_tpu_torch.ops import _lib, parity, rvq, rvq_fused, sswm
+from nawc_tpu_torch.ops.conv import conv1d
 from nawc_tpu_torch.tools.conv_layers import depthwise_geometries, stride1_geometries
 from nawc_tpu_torch.utils.config import CodecConfig
 
@@ -562,6 +563,19 @@ def _same_conv_ops():
     return sc
 
 
+def _sc_op(x, w, bias, d, res=None):
+    """The conv op at a conv in the stride-1 kernel's domain: on the card
+    the kernel."""
+    p = d * (w.shape[-1] - 1) // 2
+    return conv1d(x, w, bias, 1, lambda t: (p, p), d, 1, res)
+
+
+def _sc_plain(x, w, bias, d, res=None):
+    """The op's plain version, on the card."""
+    with _lib.plain_versions():
+        return _sc_op(x, w, bias, d, res)
+
+
 def _sc_case(c_in, c_out, k, b, t, dev, seed, offset=0):
     """x at 1 sigma from element `offset` of a flat buffer (so that its
     address and rows need not be aligned), the flax init's weight scale, a
@@ -575,7 +589,7 @@ def _sc_case(c_in, c_out, k, b, t, dev, seed, offset=0):
     return x, w, bias, rbuf[offset:].view(b, c_out, t)
 
 
-def _sc_check(sc, got, x, w, bias, d, res) -> float:
+def _sc_check(got, x, w, bias, d, res) -> float:
     """The kernel's output `got` against the plain version.  With acc the
     float32 sum of the K = C_in k products and E = K 2^-22 sum |products|
     (twice the worst-case error of a float32 sum of K terms, in any order,
@@ -595,15 +609,15 @@ def _sc_check(sc, got, x, w, bias, d, res) -> float:
     def ulp(v):
         return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
 
-    conv = sc.same_conv(x, w, torch.zeros_like(bias), d)
+    conv = _sc_op(x, w, torch.zeros_like(bias), d)
     rounded = acc.to(torch.bfloat16)
     off = (conv.float() - rounded.float()).abs()
     bar = ulp(torch.maximum(acc.abs(), rounded.float().abs())) + err
     assert bool((off <= bar).all()), f"the convolution is off RN(acc) by {float((off - bar).max())} past its bar"
     y_k = conv + bias.to(torch.bfloat16)[:, None]
     assert torch.equal(got, y_k if res is None else res + y_k)
-    want = sc.same_conv_reference(x, w, bias, d, res)
-    y = sc.same_conv_reference(x, w, bias, d) if res is not None else want
+    want = _sc_plain(x, w, bias, d, res)
+    y = _sc_plain(x, w, bias, d) if res is not None else want
     u = ulp(torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs()))
     off = (got.float() - want.float()).abs()
     assert bool((off <= 2 * u + err).all())
@@ -621,33 +635,31 @@ def test_same_conv_is_the_plain_version_within_one_ulp(dev, c_in, c_out, k, d, r
     x, w, bias, res = _sc_case(c_in, c_out, k, b, t, dev, seed=c_in + k + d, offset=offset)
     res = res if residual else None
     n = sc._KERNEL.launches
-    got = sc.same_conv(x, w, bias, d, res)
-    again = sc.same_conv(x, w, bias, d, res)
+    got = _sc_op(x, w, bias, d, res)
+    again = _sc_op(x, w, bias, d, res)
     torch.cuda.synchronize()
     assert sc._KERNEL.launches == n + 2 and got.dtype == torch.bfloat16 and got.shape == (b, c_out, t)
     assert torch.equal(got, again)
-    _sc_check(sc, got, x, w, bias, d, res)
+    _sc_check(got, x, w, bias, d, res)
 
 
 @pytest.mark.parametrize("c_in,c_out,k,d,residual,t", sorted(_SC_FULL))
 def test_same_conv_at_the_full_batch(dev, c_in, c_out, k, d, residual, t):
     """The narrowest and the widest layers at the 16 x 4 s batch's T."""
-    sc = _same_conv_ops()
     x, w, bias, res = _sc_case(c_in, c_out, k, 16, t, dev, seed=t + k + d)
     res = res if residual else None
-    got = sc.same_conv(x, w, bias, d, res)
-    _sc_check(sc, got, x, w, bias, d, res)
-    assert torch.equal(got, sc.same_conv(x, w, bias, d, res))
+    got = _sc_op(x, w, bias, d, res)
+    _sc_check(got, x, w, bias, d, res)
+    assert torch.equal(got, _sc_op(x, w, bias, d, res))
 
 
 @pytest.mark.parametrize("t", [1, 5, 27, 64])
 def test_same_conv_with_t_within_the_padding(dev, t):
     """T at or below the padding (27 at k 7, d 9): every tap but the centre
     reads zeros somewhere."""
-    sc = _same_conv_ops()
     x, w, bias, res = _sc_case(48, 48, 7, 1, t, dev, seed=t)
-    got = sc.same_conv(x, w, bias, 9, res)
-    _sc_check(sc, got, x, w, bias, 9, res)
+    got = _sc_op(x, w, bias, 9, res)
+    _sc_check(got, x, w, bias, 9, res)
 
 
 def test_same_conv_refuses_what_it_does_not_take(dev):
@@ -659,7 +671,7 @@ def test_same_conv_refuses_what_it_does_not_take(dev):
     bad = [(x.float(), w, 1), (x, w[..., :6], 1), (x[:, :40], w[:, :40], 1), (x, w[:40], 1), (x, w, 11)]
     for xi, wi, d in bad:
         with pytest.raises(ValueError):
-            sc.same_conv(xi, wi, bias[: wi.shape[0]], d)
+            sc.launch(xi, wi, bias[: wi.shape[0]], None, d)
     assert sc._KERNEL.launches == n
 
 
@@ -680,9 +692,9 @@ def test_same_conv_gradient_against_plain_autograd(dev, c_in, c_out, k, d, resid
         return torch.autograd.grad(out, leaves, g)
 
     n = sc._KERNEL.launches
-    got = grads(sc.same_conv)
+    got = grads(_sc_op)
     assert sc._KERNEL.launches == n + 1
-    want = grads(sc.same_conv_reference)
+    want = grads(_sc_plain)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert float((a.float() - b.float()).abs().max()) <= _bf16_ulp(float(b.float().abs().max()))
@@ -694,12 +706,12 @@ def test_same_conv_under_no_grad_keeps_no_graph(dev):
     sc = _same_conv_ops()
     x, w, bias, res = _sc_case(96, 96, 1, 2, 512, dev, seed=3)
     w.requires_grad_()
-    sc.same_conv(x, w, bias, 1, res)  # the weight tables, built once
+    _sc_op(x, w, bias, 1, res)  # the weight tables, built once
     torch.cuda.synchronize()
     n = sc._KERNEL.launches
     with torch.no_grad(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out = sc.same_conv(x, w, bias, 1, res)
+        out = _sc_op(x, w, bias, 1, res)
         torch.cuda.synchronize()
     assert out.grad_fn is None and not out.requires_grad and sc._KERNEL.launches == n + 1
     names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -742,6 +754,18 @@ def _dw_ops():
     return dw
 
 
+def _dw_op(x, w, bias, d):
+    """The conv op at a depthwise conv in the kernel's domain, padded as
+    ``SameConv1d`` pads one: on the card the kernel."""
+    return conv1d(x, w, bias, 1, d * (w.shape[-1] - 1) // 2, d, w.shape[0])
+
+
+def _dw_plain(x, w, bias, d):
+    """The op's plain version, on the card."""
+    with _lib.plain_versions():
+        return _dw_op(x, w, bias, d)
+
+
 def _dw_case(c, k, b, t, dev, seed, offset=0):
     """x at 1 sigma from element `offset` of a flat buffer (so that its
     address and rows need not be aligned), the flax init's depthwise weight
@@ -753,7 +777,7 @@ def _dw_case(c, k, b, t, dev, seed, offset=0):
     return buf[offset:].view(b, c, t), w, bias
 
 
-def _dw_check(dw, got, x, w, bias, d) -> float:
+def _dw_check(got, x, w, bias, d) -> float:
     """The kernel's output `got` against the float64 sum and the plain
     version.  With acc the float64 sum of the k exact products and E = k
     2^-22 sum |products| (twice the worst-case error of a float32 sum of k
@@ -773,14 +797,14 @@ def _dw_check(dw, got, x, w, bias, d) -> float:
     def ulp(v):
         return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
 
-    conv = dw.dwconv(x, w, None, d)
+    conv = _dw_op(x, w, None, d)
     rounded = acc.float().to(torch.bfloat16).double()
     off = (conv.double() - rounded).abs()
     bar = ulp(torch.maximum(acc.abs(), rounded.abs())) + err
     assert bool((off <= bar).all()), f"the convolution is off RN(acc) by {float((off - bar).max())} past its bar"
     del off, bar, rounded
     assert torch.equal(got, conv + bias.to(torch.bfloat16)[:, None])
-    want = dw.dwconv_reference(x, w, bias, d).double()
+    want = _dw_plain(x, w, bias, d).double()
     u = ulp(torch.maximum(torch.maximum(acc.abs(), want.abs()), got.double().abs()))
     off = (got.double() - want).abs()
     assert bool((off <= 2 * u + err).all())
@@ -797,32 +821,30 @@ def test_dwconv_is_the_plain_version_within_one_ulp(dev, c, k, d, b, t, offset):
     dw = _dw_ops()
     x, w, bias = _dw_case(c, k, b, t, dev, seed=c + k + d, offset=offset)
     n = dw._KERNEL.launches
-    got = dw.dwconv(x, w, bias, d)
-    again = dw.dwconv(x, w, bias, d)
+    got = _dw_op(x, w, bias, d)
+    again = _dw_op(x, w, bias, d)
     torch.cuda.synchronize()
     assert dw._KERNEL.launches == n + 2 and got.dtype == torch.bfloat16 and got.shape == (b, c, t)
     assert torch.equal(got, again)
-    _dw_check(dw, got, x, w, bias, d)
+    _dw_check(got, x, w, bias, d)
 
 
 @pytest.mark.parametrize("c,d,t", [(96, 1, 184_320), (96, 9, 184_320), (1024, 1, 480), (768, 9, 3840)])
 def test_dwconv_at_the_full_batch(dev, c, d, t):
     """The largest layer, and the shortest rows, at the 16 x 4 s batch's T."""
-    dw = _dw_ops()
     x, w, bias = _dw_case(c, 7, 16, t, dev, seed=t + d)
-    got = dw.dwconv(x, w, bias, d)
-    _dw_check(dw, got, x, w, bias, d)
-    assert torch.equal(got, dw.dwconv(x, w, bias, d))
+    got = _dw_op(x, w, bias, d)
+    _dw_check(got, x, w, bias, d)
+    assert torch.equal(got, _dw_op(x, w, bias, d))
 
 
 @pytest.mark.parametrize("t", [1, 5, 8, 24, 27, 64])
 def test_dwconv_with_t_within_the_padding(dev, t):
     """T at or below the padding (27 at k 7, d 9): every tap but the centre
     reads zeros somewhere; T 8 and 24 through the 16-byte copies."""
-    dw = _dw_ops()
     x, w, bias = _dw_case(64, 7, 2, t, dev, seed=t)
-    got = dw.dwconv(x, w, bias, 9)
-    _dw_check(dw, got, x, w, bias, 9)
+    got = _dw_op(x, w, bias, 9)
+    _dw_check(got, x, w, bias, 9)
 
 
 def test_dwconv_refuses_what_it_does_not_take(dev):
@@ -836,7 +858,7 @@ def test_dwconv_refuses_what_it_does_not_take(dev):
            (x, w[..., :5], 1), (x, w, 11), (x, w, 2), (x, w2, 1), (x[:, :40], w, 1)]
     for xi, wi, d in bad:
         with pytest.raises(ValueError):
-            dw.dwconv(xi, wi, bias, d)
+            dw.launch(xi, wi, bias, None, d)
     assert dw._KERNEL.launches == n
 
 
@@ -853,9 +875,9 @@ def test_dwconv_gradient_against_plain_autograd(dev, c, k, d):
         return torch.autograd.grad(fn(leaves[0], leaves[1], leaves[2], d), leaves, g)
 
     n = dw._KERNEL.launches
-    got = grads(dw.dwconv)
+    got = grads(_dw_op)
     assert dw._KERNEL.launches == n + 1
-    want = grads(dw.dwconv_reference)
+    want = grads(_dw_plain)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert float((a.float() - b.float()).abs().max()) <= _bf16_ulp(float(b.float().abs().max()))
@@ -870,14 +892,14 @@ def test_dwconv_under_no_grad_keeps_no_graph(dev):
     dw = _dw_ops()
     x, w, bias = _dw_case(128, 7, 2, 4096, dev, seed=3)
     w.requires_grad_()
-    dw.dwconv(x, w, bias, 3)  # the taps, laid out once
+    _dw_op(x, w, bias, 3)  # the taps, laid out once
     torch.cuda.synchronize()
     for _ in range(3):
         n = dw._KERNEL.launches
         with torch.no_grad(), torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             time.sleep(0.1)
-            out = dw.dwconv(x, w, bias, 3)
+            out = _dw_op(x, w, bias, 3)
             torch.cuda.synchronize()
         assert out.grad_fn is None and not out.requires_grad and dw._KERNEL.launches == n + 1
         names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]

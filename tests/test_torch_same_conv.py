@@ -1,11 +1,11 @@
-"""The plain version of the stride-1 convolution op (``ops.same_conv``)
-against the codec's own path, and the dispatch of ``SameConv1d`` to the op.
+"""The convolution op (``ops.conv``) on the CPU at the convs that the
+stride-1 kernel (``ops.same_conv``) takes, and the routes of ``SameConv1d``.
 
-``same_conv_reference`` is the arithmetic that ``SameConv1d`` (F.pad, then
-``_conv``) and ``ResidualUnit`` (``x + y``) had before the op: on the CPU
-the two must agree bit for bit at every geometry of the codec's stride-1
-convolutions, so that the JAX parity tests of the bfloat16 codec hold
-through the op as they held before it.
+On the CPU the op must be, bit for bit at every geometry of the codec's
+stride-1 convolutions, the arithmetic written out in :func:`_want` (F.pad,
+a float32 conv of the bfloat16 values rounded once, the bias added in
+bfloat16, then the residual's ``x + y``), so that the JAX parity tests of
+the bfloat16 codec hold through the op.
 """
 
 import numpy as np
@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from nawc_tpu_torch.codec import layers
+from nawc_tpu_torch.ops import _lib, dwconv
+from nawc_tpu_torch.ops import conv as conv_op
 from nawc_tpu_torch.ops import same_conv as sc
 from nawc_tpu_torch.utils import profiling
 
@@ -35,13 +37,37 @@ def _case(c_in, c_out, k, b, t, seed, dtype=torch.bfloat16):
     return x, w, bias, res
 
 
-def _old_path(x, w, bias, d, res):
-    """SameConv1d's body before the op, then ResidualUnit's x + y."""
-    k = w.shape[-1]
-    total = d * (k - 1)
-    xp = F.pad(x, (total // 2, total - total // 2)) if total else x
-    y = layers._conv(F.conv1d, xp, w, bias, 1, 0, d, 1)
+def _want(x, w, bias, stride, pads, d, groups, res):
+    """F.pad by `pads`; in bfloat16 a float32 conv of the bfloat16 values,
+    rounded once, then the bias added in bfloat16; in float32 and float64
+    the conv with its bias; then ``res + y``."""
+    xp = F.pad(x, pads)
+    wx, bx = w.to(x.dtype), bias.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        y = F.conv1d(xp.float(), wx.float(), None, stride, 0, d, groups).to(x.dtype) + bx[:, None]
+    else:
+        y = F.conv1d(xp, wx, bx, stride, 0, d, groups)
     return y if res is None else res + y
+
+
+def _same(k, d):
+    """SAME padding at stride 1 as a function of T, as ``conv1d`` takes it."""
+    return lambda t: (d * (k - 1) // 2, d * (k - 1) - d * (k - 1) // 2)
+
+
+class _Route:
+    """Records the route ``ops.conv.conv1d`` takes on the CPU: ``"plain"``
+    where a kernel takes the conv, ``"native"`` where none does."""
+
+    def __init__(self, monkeypatch):
+        self.taken = []
+        real = conv_op._padded
+
+        def spy(conv, *args):
+            self.taken.append("plain" if conv is conv_op.conv_plain else "native")
+            return real(conv, *args)
+
+        monkeypatch.setattr(conv_op, "_padded", spy)
 
 
 @pytest.mark.parametrize("b,t", LENGTHS)
@@ -49,8 +75,9 @@ def _old_path(x, w, bias, d, res):
 def test_reference_is_the_codec_path_bit_for_bit(c_in, c_out, k, d, residual, b, t):
     x, w, bias, res = _case(c_in, c_out, k, b, t, seed=c_in + k + d + t)
     res = res if residual else None
-    want = _old_path(x, w, bias, d, res)
-    got = sc.same_conv_reference(x, w, bias, d, res)
+    k_pad = d * (k - 1) // 2
+    want = _want(x, w, bias, 1, (k_pad, k_pad), d, 1, res)
+    got = conv_op.conv1d(x, w, bias, 1, _same(k, d), d, 1, res)
     assert got.dtype == torch.bfloat16 and got.shape == (b, c_out, t)
     assert torch.equal(got, want)
     # the module routes to the op and gives the same bits
@@ -70,53 +97,41 @@ def test_residual_unit_folds_its_add_into_the_conv():
         x = torch.randn(2, 48, 40).to(dtype)
         with torch.no_grad():
             h = unit.Snake_1(unit.Conv_0(unit.Snake_0(x)))
-            want = x + layers._conv(F.conv1d, h, unit.Conv_1.weight, unit.Conv_1.bias, 1, 0, 1, 1)
+            want = _want(h, unit.Conv_1.weight, unit.Conv_1.bias, 1, (0, 0), 1, 1, x)
             assert torch.equal(unit(x), want)
-
-
-class _Spy:
-    def __init__(self, monkeypatch):
-        self.calls = 0
-        real = sc.same_conv
-
-        def spy(*args, **kwargs):
-            self.calls += 1
-            return real(*args, **kwargs)
-
-        monkeypatch.setattr(sc, "same_conv", spy)
 
 
 @pytest.mark.parametrize("case", ["float32", "stride 2", "groups 2", "C_in 1", "even k", "C_out 8"])
 def test_dispatch_leaves_the_rest_on_the_plain_path(monkeypatch, case):
     """Float32, strided, grouped, single-input-channel, even-k and narrow
-    convs never reach the op; their outputs are today's."""
+    convs take the route of no kernel; their outputs are the arithmetic
+    written out in ``_want``."""
     kw = dict(c_in=48, c_out=48, k=7, stride=1, groups=1, dtype=torch.bfloat16)
     kw.update({"float32": dict(dtype=torch.float32), "stride 2": dict(stride=2, k=4),
                "groups 2": dict(groups=2), "C_in 1": dict(c_in=1), "even k": dict(k=4),
                "C_out 8": dict(c_out=8)}[case])
-    spy = _Spy(monkeypatch)
+    route = _Route(monkeypatch)
     torch.manual_seed(1)
     conv = layers.SameConv1d(kw["c_in"], kw["c_out"], kw["k"], stride=kw["stride"], groups=kw["groups"])
     x = torch.randn(2, kw["c_in"], 33).to(kw["dtype"])
     before = profiling.total("launches.same_conv")
     with torch.no_grad():
         y = conv(x)
-    assert spy.calls == 0 and profiling.total("launches.same_conv") == before
+    assert route.taken == ["native"] and profiling.total("launches.same_conv") == before
     s, k = kw["stride"], kw["k"]
     total = max((-(-33 // s) - 1) * s + k - 33, 0)
-    want = layers._conv(F.conv1d, F.pad(x, (total // 2, total - total // 2)), conv.weight, conv.bias,
-                        s, 0, 1, kw["groups"])
+    want = _want(x, conv.weight, conv.bias, s, (total // 2, total - total // 2), 1, kw["groups"], None)
     assert torch.equal(y, want)
 
 
 def test_cpu_bfloat16_takes_the_op_and_launches_nothing(monkeypatch):
-    spy = _Spy(monkeypatch)
+    route = _Route(monkeypatch)
     conv = layers.SameConv1d(48, 48, 7, dilation=9)
     x = torch.randn(1, 48, 20).to(torch.bfloat16)
     before = profiling.total("launches.same_conv")
     with torch.no_grad():
         conv(x)
-    assert spy.calls == 1 and profiling.total("launches.same_conv") == before
+    assert route.taken == ["plain"] and profiling.total("launches.same_conv") == before
 
 
 @pytest.mark.parametrize("c_in,c_out,k,d,residual", [(16, 32, 7, 3, False), (32, 32, 1, 1, True)])
@@ -129,13 +144,52 @@ def test_function_gradient_is_autograd_of_the_plain_path(c_in, c_out, k, d, resi
     res = res if residual else None
     g = torch.randn(2, c_out, 23, dtype=torch.float64)
     leaves = [t.clone().requires_grad_() for t in (x, w, bias)] + ([res.clone().requires_grad_()] if residual else [])
-    out = sc._SameConvFunction.apply(leaves[0], leaves[1], leaves[2], leaves[3] if residual else None, d)
+    out = conv_op._KernelConv.apply(leaves[0], leaves[1], leaves[2], leaves[3] if residual else None, sc,
+                                    _same(k, d), d, 1)
     got = torch.autograd.grad(out, leaves, g)
     plain = [t.clone().requires_grad_() for t in (x, w, bias)] + ([res.clone().requires_grad_()] if residual else [])
-    want = torch.autograd.grad(_old_path(plain[0], plain[1], plain[2], d, plain[3] if residual else None),
+    p = d * (k - 1) // 2
+    want = torch.autograd.grad(_want(plain[0], plain[1], plain[2], 1, (p, p), d, 1, plain[3] if residual else None),
                                plain, g)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("where,kernel,grad,route", [
+    ("cpu", "same_conv", False, "plain"), ("cpu", "dwconv", False, "plain"), ("cpu", None, False, "native"),
+    ("cpu", "same_conv", True, "plain"), ("card", "same_conv", False, "launch"),
+    ("card", "dwconv", True, "function"),
+])
+def test_conv1d_takes_the_route_of_its_table(monkeypatch, where, kernel, grad, route):
+    """``ops.conv.conv1d``'s table: on the CPU, a conv that a kernel takes
+    runs the plain version (autograd of it where a gradient is wanted) and
+    one that no kernel takes the native route; on the card (here: the
+    kernel's ``launch`` stubbed and ``use_kernel`` made true) the kernel's
+    launch, through ``_KernelConv`` where a gradient is wanted."""
+    c, groups, k, dtype = {"same_conv": (48, 1, 7, torch.bfloat16), "dwconv": (64, 64, 7, torch.bfloat16),
+                           None: (48, 1, 7, torch.float32)}[kernel]
+    torch.manual_seed(2)
+    x = torch.randn(2, c, 30).to(dtype)
+    w = (torch.randn(c, c // groups, k) / 8).requires_grad_(grad)
+    bias = torch.randn(c) * 0.1
+    taken = _Route(monkeypatch)
+    launched = []
+    if where == "card":
+        monkeypatch.setattr(_lib, "use_kernel", lambda x: True)
+        binding = {"same_conv": sc, "dwconv": dwconv}[kernel]
+        monkeypatch.setattr(binding, "launch", lambda *a: launched.append(a) or torch.zeros(2, c, 30, dtype=dtype))
+    y = conv_op.conv1d(x, w, bias, 1, _same(k, 3), 3, groups)
+    assert y.shape == (2, c, 30) and y.dtype == dtype
+    assert (taken.taken, len(launched)) == {"plain": (["plain"], 0), "native": (["native"], 0),
+                                             "launch": ([], 1), "function": ([], 1)}[route]
+    node = type(y.grad_fn).__name__ if y.grad_fn is not None else None
+    assert (node == "_KernelConvBackward") == (route == "function") and (node is not None) == grad
+    if where == "cpu":
+        want = _want(x, w, bias, 1, (9, 9), 3, groups, None)
+        assert torch.equal(y, want)
+        if grad:
+            g = torch.randn_like(want)
+            assert torch.equal(torch.autograd.grad(y, w, g)[0], torch.autograd.grad(want, w, g)[0])
 
 
 def test_takes_names_the_kernel_domain():
