@@ -46,11 +46,13 @@ Phases, each printing its seconds:
    plain forward, dx bit for bit its formula, two runs bit for bit, device
    and wall ms of each pass beside the plain version's and the bound, and
    their sums over each encode beside phase 1's instructions per element;
-   and the stride-1 convolution kernel (``csrc/same_conv.cu``) at the 50
-   convolutions of one bfloat16 16 x 4 s encode and decode against its
+   and the stride-1 convolution kernels (``csrc/same_conv.cu``) at the 50
+   convolutions of one bfloat16 16 x 4 s encode and decode against their
    plain version (every output within its ulp bar, two runs bit for bit),
-   with its device time beside the plain version's, cuDNN's bfloat16
-   ``F.conv1d`` and the bound; and the depthwise convolution kernel
+   with their device time beside the plain version's, cuDNN's bfloat16
+   ``F.conv1d`` and the bound, then the k 1 GEMM path (``k1conv``) at SNAC
+   44 kHz's 29 k 1 convs, the sums of the stencil kernel's 26 convs and of
+   each codec's k 1 convs apart; and the depthwise convolution kernel
    (``csrc/dwconv.cu``) likewise at the 26 depthwise convolutions of one
    SNAC 44 kHz 16 x 4 s encode and decode, beside ATen's grouped bfloat16
    ``F.conv1d``;
@@ -257,9 +259,10 @@ F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
 # stride-1 convolution's the bfloat16 codec (phase 9), the depthwise
 # convolution's the SNAC bfloat16 main path (phase 16)
 MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake")
-BF16_ONLY = ("same_conv", "dwconv")  # launched by bfloat16 codecs only (dwconv: SNAC's)
+BF16_ONLY = ("same_conv", "k1conv", "dwconv")  # launched by bfloat16 codecs only (dwconv: SNAC's)
 LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)",
-               "same_conv": "bf16 codec (phase 9)", "dwconv": "SNAC bf16 main path (phase 16)"}
+               "same_conv": "bf16 codec (phase 9)", "k1conv": "SNAC bf16 main path (phase 16)",
+               "dwconv": "SNAC bf16 main path (phase 16)"}
 Z_TOL = 1e-4       # whiten_correlate z, kernel vs plain (one TF32 pass would miss it)
 BIT_Z_MIN = 1e-2   # bits must agree wherever |z| exceeds this
 MARKED_TOL = 1e-5
@@ -1071,73 +1074,110 @@ def device_ms_retried(fn, tries: int = 3) -> float:
     return ms
 
 
-def check_same_conv(dev) -> dict:
-    """The kernel against its plain version on the card at the 50 stride-1
-    convolutions of one 16 x 4 s bfloat16 encode and decode (each distinct
-    geometry once, counted as often as the codec runs it): every output
-    within two bfloat16 ulps of the largest of |acc|, |y| and |out| of plain
-    (a flip of RN(acc) and the two adds after it) plus K 2^-22 sum |products|
-    (two float32 sums of the K = C_in k products in different orders), the
-    largest difference printed in those ulps; two runs bit for bit;
-    device ms of the kernel, of the plain version and of cuDNN's bfloat16
-    ``F.conv1d`` at the same padding (a yardstick only), and the bound: per
-    launch the larger of its bytes at 3.35 TB/s and FLOPs at 989 TFLOP/s,
-    summed.  -> the kernel's record."""
+def _same_conv_row(dev, seed: int, c_in, c_out, k, d, residual, t, bias=True) -> dict:
+    """One stride-1 conv of the kernels of ``csrc/same_conv.cu`` at the 16 x
+    4 s batch: the op against its plain version (the bar of
+    :func:`check_same_conv`), two runs bit for bit, and device ms of the op,
+    of its plain version and of cuDNN's bfloat16 ``F.conv1d`` at the same
+    padding (a yardstick only), and the bound (the larger of its bytes at
+    3.35 TB/s and FLOPs at 989 TFLOP/s).  The op's first call must launch
+    the GEMM path at k 1 and the stencil kernel at any other k, once.
+    -> the row."""
     from nawc_tpu_torch.ops import same_conv as sc
     from nawc_tpu_torch.ops.conv import conv1d
-    from nawc_tpu_torch.tools.conv_layers import stride1_geometries
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BATCH, c_in, t), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
+    b = torch.randn((c_out,), generator=gen, device=dev) * 0.1 if bias else None
+    res = torch.randn((BATCH, c_out, t), generator=gen, device=dev).to(torch.bfloat16) if residual else None
+    p = d * (k - 1) // 2
+    name = f"same_conv {c_in}->{c_out} k{k} d{d}{' +res' if residual else ''}{'' if bias else ' no bias'} T {t}"
+
+    def op(r):  # the conv op at SAME padding: the kernel, or the plain version under plain_versions
+        return conv1d(x, w, b, 1, lambda n: (p, p), d, 1, r)
+
+    mine, other = (sc._K1, sc._KERNEL) if k == 1 else (sc._KERNEL, sc._K1)
+    with torch.no_grad():
+        before = (mine.launches, other.launches)
+        got = op(res)
+        check((mine.launches - before[0], other.launches - before[1]) == (1, 0),
+              f"{name}: the op did not launch {mine.name} alone")
+        with _lib.plain_versions():
+            want = op(res)
+            y = op(None) if residual else want
+        acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float(),
+                                         w.to(torch.bfloat16).float(), None, 1, 0, d)
+        scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
+        off = (got.float() - want.float()).abs()
+        sums = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float().abs(),
+                                          w.to(torch.bfloat16).float().abs(), None, 1, 0, d)
+        past = int((off > 2 * ulp + sums * (c_in * k * 2.0**-22)).sum())
+        ulps, err = float((off / ulp).max()), float(off.max())
+        del acc, y, scale, ulp, off, want, sums
+        check(torch.equal(got, op(res)), f"{name}: two runs differ")
+        ms = device_ms_retried(lambda: op(res))
+        with _lib.plain_versions():
+            plain_ms = device_ms_retried(lambda: op(res))
+        wb, bb = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+        lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d))
+    check(past == 0, f"{name}: {past} outputs off plain past their bar")
+    nbytes, flops = sc.bound_counts(BATCH, c_in, c_out, t, k, residual)
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+    print(f"{name}: device {ms:.4f} ms, plain {plain_ms:.4f}, cuDNN F.conv1d {lib_ms:.4f}, bound "
+          f"{bound_ms:.4f} ({100 * bound_ms / ms:.1f}%); {ulps:g} ulps, {err:.3g} off plain")
+    return dict(ms=ms, plain=plain_ms, lib=lib_ms, bound=bound_ms, ulps=ulps, err=err)
+
+
+def _summed(rows: list[tuple[dict, int]]) -> dict:
+    """The rows' times, each counted as often as the codec runs it; the
+    largest ulps and error."""
+    tot = {key: sum(n * r[key] for r, n in rows) for key in ("ms", "plain", "lib", "bound")}
+    return dict(tot, ulps=max(r["ulps"] for r, _ in rows), err=max(r["err"] for r, _ in rows))
+
+
+def check_same_conv(dev) -> dict:
+    """The kernels of ``csrc/same_conv.cu`` against their plain version on
+    the card at the 50 stride-1 convolutions of one 16 x 4 s bfloat16
+    encode and decode (each distinct geometry once, counted as often as the
+    codec runs it: 26 on the stencil kernel, 24 k 1 convs on the GEMM path),
+    then the GEMM path alone at the 29 k 1 convs of one SNAC 44 kHz encode
+    and decode: every
+    output within two bfloat16 ulps of the largest of |acc|, |y| and |out|
+    of plain (a flip of RN(acc) and the two adds after it) plus K 2^-22 sum
+    |products| (two float32 sums of the K = C_in k products in different
+    orders), the largest difference printed in those ulps; two runs bit for
+    bit; device ms of the kernel, of the plain version and of cuDNN's
+    bfloat16 ``F.conv1d`` at the same padding (a yardstick only), and the
+    bound: per launch the larger of its bytes at 3.35 TB/s and FLOPs at 989
+    TFLOP/s, summed.  -> the records of ``same_conv`` (the stencil
+    kernel's 26 convs) and ``k1conv`` (SNAC's 29, with codec24k's 24 under
+    ``"codec24k"``)."""
+    from nawc_tpu_torch.tools.conv_layers import k1_geometries, stride1_geometries
 
     counts: dict[tuple, int] = {}
     for g in stride1_geometries():
         counts[g] = counts.get(g, 0) + 1
-    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, ulps=0.0, err=0.0)
-    for i, ((c_in, c_out, k, d, residual, t), n) in enumerate(sorted(counts.items())):
-        gen = torch.Generator(device=dev).manual_seed(40 + i)
-        x = torch.randn((BATCH, c_in, t), generator=gen, device=dev).to(torch.bfloat16)
-        w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
-        b = torch.randn((c_out,), generator=gen, device=dev) * 0.1
-        res = torch.randn((BATCH, c_out, t), generator=gen, device=dev).to(torch.bfloat16) if residual else None
-        p = d * (k - 1) // 2
+    rows = [(_same_conv_row(dev, 40 + i, *g), n, g[2]) for i, (g, n) in enumerate(sorted(counts.items()))]
+    snac: dict[tuple, int] = {}
+    for g in k1_geometries(CodecConfig.snac_44khz(), 184_320):
+        snac[g] = snac.get(g, 0) + 1
+    sums = {"same_conv": _summed([(r, n) for r, n, k in rows if k != 1]),
+            "k1conv codec24k": _summed([(r, n) for r, n, k in rows if k == 1]),
+            "k1conv snac44k": _summed([(_same_conv_row(dev, 90 + i, c_in, c_out, 1, 1, res, t, bias), n)
+                                       for i, ((c_in, c_out, res, bias, t), n) in enumerate(sorted(snac.items()))])}
+    for (what, r), n in zip(sums.items(), (26, 24, 29)):
+        print(f"{what}, its {n} launches of one {BATCH} x {SECONDS} s encode and decode: {r['ms']:.3f} ms "
+              f"(plain {r['plain']:.3f}, cuDNN {r['lib']:.3f}, bound {r['bound']:.3f}: "
+              f"{100 * r['bound'] / r['ms']:.0f}% of it); largest {r['ulps']:g} ulps off plain")
 
-        def op(r):  # the conv op at SAME padding: the kernel, or the plain version under plain_versions
-            return conv1d(x, w, b, 1, lambda n: (p, p), d, 1, r)
+    def record(r):
+        return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"], bound_ms=r["bound"],
+                    bound_by="bytes and operations, the larger a launch", library_ms=r["lib"])
 
-        with torch.no_grad():
-            got = op(res)
-            with _lib.plain_versions():
-                want = op(res)
-                y = op(None) if residual else want
-            acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float(),
-                                             w.to(torch.bfloat16).float(), None, 1, 0, d)
-            scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
-            ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
-            off = (got.float() - want.float()).abs()
-            sums = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float().abs(),
-                                              w.to(torch.bfloat16).float().abs(), None, 1, 0, d)
-            past = int((off > 2 * ulp + sums * (c_in * k * 2.0**-22)).sum())
-            ulps, err = float((off / ulp).max()), float(off.max())
-            del acc, y, scale, ulp, off, want, sums
-            check(torch.equal(got, op(res)), f"same_conv {c_in} k{k} d{d}: two runs differ")
-            ms = device_ms_retried(lambda: op(res))
-            with _lib.plain_versions():
-                plain_ms = device_ms_retried(lambda: op(res))
-            wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
-            lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d))
-        check(past == 0, f"same_conv {c_in} k{k} d{d}: {past} outputs off plain past their bar")
-        nbytes, flops = sc.bound_counts(BATCH, c_in, c_out, t, k, residual)
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
-        print(f"same_conv {c_in}->{c_out} k{k} d{d}{' +res' if residual else ''} T {t} (x{n}): device "
-              f"{ms:.4f} ms, plain {plain_ms:.4f}, cuDNN F.conv1d {lib_ms:.4f}, bound {bound_ms:.4f} "
-              f"({100 * bound_ms / ms:.1f}%); {ulps:g} ulps, {err:.3g} off plain")
-        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bound", bound_ms)):
-            tot[key] += n * v
-        tot["ulps"], tot["err"] = max(tot["ulps"], ulps), max(tot["err"], err)
-        del x, w, b, res, got
-    print(f"same_conv, the 50 launches of one {BATCH} x {SECONDS} s encode and decode: {tot['ms']:.3f} ms "
-          f"(plain {tot['plain']:.3f}, cuDNN {tot['lib']:.3f}, bound {tot['bound']:.3f}: "
-          f"{100 * tot['bound'] / tot['ms']:.0f}% of it); largest {tot['ulps']:g} ulps off plain")
-    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
-                bound_by="bytes and operations, the larger a launch", library_ms=tot["lib"])
+    return {"same_conv": record(sums["same_conv"]),
+            "k1conv": dict(record(sums["k1conv snac44k"]), codec24k=record(sums["k1conv codec24k"]))}
 
 
 def check_dwconv(dev) -> dict:
@@ -2344,8 +2384,9 @@ def snac_phase(dev, n_clips: int = BATCH, seconds: float = SECONDS, seed: int = 
     noise -> detect) with the SNAC codec built as the cell builds it, on
     `n_clips` x `seconds` s of seeded noise at 44.1 kHz.  After one warm
     call the launch counts are reset; the next call must launch ``dwconv``
-    26 times (13 in the encoder, 13 in the decoder) and ``same_conv`` 29
-    times, and give finite outputs.  -> its launches and ms per call."""
+    26 times (13 in the encoder, 13 in the decoder), its 29 k 1 convs on
+    the GEMM path (``k1conv``) and the stencil kernel (``same_conv``) not
+    at all, and give finite outputs.  -> its launches and ms per call."""
     from port_bench.weights_snac import make_codec as snac_codec
 
     codec, _ = snac_codec(json.loads(SNAC_CONFIG.read_text())["codec"], seed, dev)
@@ -2361,8 +2402,10 @@ def snac_phase(dev, n_clips: int = BATCH, seconds: float = SECONDS, seed: int = 
     launches = {n: k.launches for n, k in _lib.KERNELS.items()}
     print(f"one SNAC 44 kHz bf16 call, {n_clips} x {seconds} s: launches {launches}")
     check(launches["dwconv"] == 26, f"one SNAC bf16 call launched dwconv {launches['dwconv']} times, not 26")
-    check(launches["same_conv"] == 29,
-          f"one SNAC bf16 call launched same_conv {launches['same_conv']} times, not 29")
+    check(launches["same_conv"] == 0,
+          f"one SNAC bf16 call launched same_conv {launches['same_conv']} times, not 0")
+    check(launches["k1conv"] == 29,
+          f"one SNAC bf16 call took the k1 GEMM path {launches['k1conv']} times, not 29")
     check(all(bool(torch.isfinite(o.float()).all()) for o in outs), "the SNAC bf16 call is not finite")
     ms = wall_ms(lambda: fn(wav, msg), iters=5, warmup=1)
     print(f"SNAC 44 kHz bf16 entry: {ms:.2f} ms a call ({n_clips * seconds / (ms / 1e3):.1f} s of audio a s)")
@@ -2411,7 +2454,7 @@ def main() -> int:
                 "random tables"),
             "jaxrand": check_jaxrand(dev),
             **check_snake(dev, sass),
-            "same_conv": check_same_conv(dev),
+            **check_same_conv(dev),
             "dwconv": check_dwconv(dev),
         }
 
@@ -2556,8 +2599,10 @@ def main() -> int:
         print(f"launches in the bf16 checks: {bf16_launches}")
         for n in ("rvq_encode_fused", "snake"):
             check(bf16_launches[n] > 0, f"bf16 encode did not launch {n}")
-        check(bf16_launches["same_conv"] == 50,
-              f"one bf16 encode and decode launched same_conv {bf16_launches['same_conv']} times, not 50")
+        check(bf16_launches["same_conv"] == 26,
+              f"one bf16 encode and decode launched same_conv {bf16_launches['same_conv']} times, not 26")
+        check(bf16_launches["k1conv"] == 24,
+              f"one bf16 encode and decode took the k1 GEMM path {bf16_launches['k1conv']} times, not 24")
         del codec16
 
     with phase("10 codec-latent watermarks"):
@@ -2593,6 +2638,7 @@ def main() -> int:
              "snake": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
              "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
              "same_conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
+             "k1conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
              "dwconv": ("dwconv.cu", "none: the JAX package has no depthwise convolution")}
     on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"],
           "bf16 codec (phase 9)": bf16_launches, "SNAC bf16 main path (phase 16)": snac["launches"]}

@@ -55,7 +55,8 @@ class SameConv1d(nn.Conv1d):
     ceil(s / 2) on both sides (flax's SAME pads 1 and 2 at stride 3, SNAC 2
     and 2; they agree at even strides).  A depthwise conv (``groups`` equal
     to the channels, SNAC's) at stride 1 is padded d (k - 1) / 2 on both
-    sides inside the conv, in a span ``codec.dwconv`` of its own."""
+    sides inside the conv, in a span ``codec.dwconv`` of its own; a k 1 conv
+    of one group at stride 1 runs in a span ``codec.k1conv``."""
 
     def __init__(self, *args, snac: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -75,6 +76,9 @@ class SameConv1d(nn.Conv1d):
         if self.groups > 1 and self.groups == self.in_channels == self.out_channels and s == 1:
             with profiling.annotate("codec.dwconv", x.device):
                 return conv1d(x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups, residual)
+        if k == 1 and s == 1 and self.groups == 1:
+            with profiling.annotate("codec.k1conv", x.device):
+                return conv1d(x, self.weight, self.bias, 1, self.pads, d, 1, residual)
         return conv1d(x, self.weight, self.bias, s, self.pads, d, self.groups, residual)
 
 

@@ -3,7 +3,10 @@ convolutions with SAME padding, the bias and an optional residual add, in
 one launch.  ``ops/conv.py`` chooses it for the convs in :func:`takes`
 (bfloat16, stride 1, one group, odd k <= 7, padding d (k - 1) / 2 <= 32,
 C_in and C_out multiples of 16), and holds its plain version and its
-gradient.
+gradient.  :func:`launch` sends a conv that :func:`gemm_path` admits (k 1,
+T a multiple of 8, x, the residual and the output 16-byte aligned) to the
+file's k = 1 GEMM kernel (counted as ``launches.k1conv``), every other
+one to its stencil kernel (``launches.same_conv``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ _KERNEL = _lib.register(_lib.CudaKernel(
     "same_conv", "nawc_same_conv",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 ))
+_K1 = _lib.register(_lib.CudaKernel(
+    "k1conv", "nawc_k1conv",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+))
 _NULL = ctypes.c_void_p(None)
 MAX_K, MAX_PAD = 7, 32  # the kernel's shared-memory tile holds these taps and halo
 
@@ -28,6 +35,15 @@ def takes(x: torch.Tensor, c_in: int, c_out: int, k: int, stride: int, dilation:
     return (x.dtype == torch.bfloat16 and stride == 1 and groups == 1 and k % 2 == 1
             and k <= MAX_K and dilation * (k - 1) // 2 <= MAX_PAD and c_in % 16 == 0
             and c_out % 16 == 0)
+
+
+def gemm_path(x: torch.Tensor, residual: torch.Tensor | None, out: torch.Tensor, k: int) -> bool:
+    """Whether the k = 1 GEMM kernel takes a conv of :func:`takes` that
+    writes `out`: k 1, and TMA's terms: T a multiple of 8 (16-byte rows),
+    x, the residual and `out` 16-byte aligned."""
+    if k != 1 or x.shape[-1] % 8:
+        return False
+    return (x.data_ptr() | out.data_ptr() | (0 if residual is None else residual.data_ptr())) % 16 == 0
 
 
 def _tables(weight: torch.Tensor, bias: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,10 +94,13 @@ def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     out = torch.empty((b, c_out, t), dtype=x.dtype, device=x.device)
     if out.numel():
         w_p, b_f = _tables(weight, bias)
+        ptrs = (_lib.ptr(x), _lib.ptr(w_p), _lib.ptr(b_f), _NULL if residual is None else _lib.ptr(residual),
+                _lib.ptr(out))
         with torch.cuda.device(x.device):
-            _KERNEL(_lib.ptr(x), _lib.ptr(w_p), _lib.ptr(b_f),
-                    _NULL if residual is None else _lib.ptr(residual), _lib.ptr(out),
-                    b, c_in, c_out, t, k, dilation, _lib.stream(x))
+            if gemm_path(x, residual, out, k):
+                _K1(*ptrs, b, c_in, c_out, t, _lib.stream(x))
+            else:
+                _KERNEL(*ptrs, b, c_in, c_out, t, k, dilation, _lib.stream(x))
     return out
 
 

@@ -13,9 +13,10 @@ convolution module's inputs, and then profiles each module alone on them
 and bias kernels.  Where a ``ResidualUnit`` adds ``x + y`` outside its
 convolutions, that add is profiled as a layer of its own.  Prints the
 device ms per call of each layer kind by kernel, each depthwise layer's
-share of its byte bound (``ops.dwconv.bound_bytes`` at 3.35 TB/s), and
-with ``--out`` writes every layer's row as JSON.  Runs on a CUDA device
-only.
+share of its byte bound (``ops.dwconv.bound_bytes`` at 3.35 TB/s) and,
+in bfloat16, each k = 1 layer's share of its bound (``ops.same_conv.bound_counts``:
+bytes at 3.35 TB/s or operations at 989 TFLOP/s, the larger), and with
+``--out`` writes every layer's row as JSON.  Runs on a CUDA device only.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..codec.layers import ResidualUnit, SameConv1d, SameConvTranspose1d
 from ..codec.model import SnacCodec
-from ..ops import dwconv
+from ..ops import dwconv, same_conv
 from ..utils.config import CodecConfig
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 CODECS = {"codec24k": (CodecConfig, 98_304), "snac44k": (CodecConfig.snac_44khz, 184_320)}
 
 
@@ -58,6 +60,27 @@ def stride1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) 
     for rate in cfg.decoder_rates:
         d, t = d // 2, t * rate
         out += units(d, t)
+    return out
+
+
+def k1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) -> list[tuple]:
+    """(C_in, C_out, residual, bias, T) of the stride-1 one-group k 1
+    convolutions of one encode and decode of `samples` samples, in the
+    codec's order, read by forward hooks from a shape pass of the codec on
+    the meta device: each ResidualUnit's Conv_1 (with the unit's residual)
+    and, in SNAC's layout, the decoder's head conv and each noise block's
+    conv (no bias, no residual): 24 at ``CodecConfig()``, 29 at
+    ``snac_44khz()``."""
+    with torch.device("meta"):
+        model = SnacCodec(cfg).eval()
+    out = []
+    for m in model.modules():
+        if isinstance(m, SameConv1d) and m.kernel_size[0] == m.stride[0] == m.groups == 1:
+            m.register_forward_hook(lambda mod, args, kwargs, y: out.append(
+                (mod.in_channels, mod.out_channels, kwargs.get("residual") is not None, mod.bias is not None,
+                 args[0].shape[-1])), with_kwargs=True)
+    with torch.no_grad():
+        model.decoder(model.encoder(torch.zeros(1, samples, device="meta")))
     return out
 
 
@@ -142,10 +165,15 @@ def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dic
             ms = _device_ms(lambda: mod(*args, **kwargs))
             rows.append(dict(layer=path, kind=_kind(path, mod, args, kwargs),
                              shape=list(args[0].shape), kernels=ms, ms=sum(ms.values())))
+            b, c, t = args[0].shape
             if rows[-1]["kind"].startswith("depthwise"):
-                b, c, t = args[0].shape
                 nbytes = dwconv.bound_bytes(b, c, t, mod.kernel_size[0])
                 rows[-1]["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            elif (isinstance(mod, SameConv1d) and mod.kernel_size[0] == mod.stride[0] == mod.groups == 1
+                  and args[0].dtype == torch.bfloat16):  # the bound's bytes and peak are bfloat16's
+                res = kwargs.get("residual") is not None
+                nbytes, flops = same_conv.bound_counts(b, c, mod.out_channels, t, 1, res)
+                rows[-1].update(k1=True, bound_ms=max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3)
         for path, x, y in adds:
             ms = _device_ms(lambda: x + y)
             rows.append(dict(layer=path + ".add", kind=f"RU x + y {x.shape[1]}", shape=list(x.shape),
@@ -155,7 +183,8 @@ def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dic
 
 def family(kernel: str) -> str:
     n = kernel.lower()
-    for key, name in (("same_conv", "same_conv (ours)"), ("dwconv", "dwconv (ours)"),
+    for key, name in (("same_conv", "same_conv (ours)"), ("k1conv", "same_conv k1 (ours)"),
+                      ("dwconv", "dwconv (ours)"),
                       ("conv_depthwise", "ATen depthwise"),
                       ("implicit_convolve_sgemm", "implicit_convolve_sgemm"),
                       ("nchwtonhwc", "transposes"), ("nhwctonchw", "transposes"),
@@ -195,11 +224,14 @@ def main(argv=None) -> int:
               + ", ".join(f"{f} {v:.3f}" for f, v in sorted(fams.items(), key=lambda kv: -kv[1])))
     print(f"  all layers: {sum(total.values()):.3f} ms: "
           + ", ".join(f"{f} {v:.3f}" for f, v in sorted(total.items(), key=lambda kv: -kv[1])))
-    dw = [r for r in rows if "bound_ms" in r]
-    if dw:
-        print(f"  depthwise layers, furthest from their byte bound first: {len(dw)} layers, "
-              f"{sum(r['ms'] for r in dw):.3f} ms, bound {sum(r['bound_ms'] for r in dw):.3f} ms")
-        for r in sorted(dw, key=lambda r: r["bound_ms"] / r["ms"]):
+    for name, mine in (("depthwise", [r for r in rows if "bound_ms" in r and not r.get("k1")]),
+                       ("k = 1", [r for r in rows if r.get("k1")])):
+        if not mine:
+            continue
+        print(f"  {name} layers, furthest from their bound first: {len(mine)} layers, "
+              f"{sum(r['ms'] for r in mine):.3f} ms, bound {sum(r['bound_ms'] for r in mine):.3f} ms "
+              f"({100 * sum(r['bound_ms'] for r in mine) / sum(r['ms'] for r in mine):.1f}%)")
+        for r in sorted(mine, key=lambda r: r["bound_ms"] / r["ms"]):
             print(f"    {r['layer']:40s} {r['kind']:28s} {r['ms']:8.4f} ms  bound {r['bound_ms']:.4f} "
                   f"({100 * r['bound_ms'] / r['ms']:.1f}%)")
     if args.out:

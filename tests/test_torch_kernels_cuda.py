@@ -630,15 +630,18 @@ def test_same_conv_is_the_plain_version_within_one_ulp(dev, c_in, c_out, k, d, r
     """Every codec geometry at a short T (copied in 16-byte pieces) and at a
     ragged one read from
     misaligned addresses, held to the plain version by ``_sc_check``; bit
-    for bit on a second call; one launch each."""
+    for bit on a second call; one launch each of the kernel its route takes
+    (the GEMM path at k 1 on 16-byte rows, else the stencil kernel)."""
     sc = _same_conv_ops()
     x, w, bias, res = _sc_case(c_in, c_out, k, b, t, dev, seed=c_in + k + d, offset=offset)
     res = res if residual else None
-    n = sc._KERNEL.launches
+    mine, other = (sc._K1, sc._KERNEL) if k == 1 and t % 8 == 0 and offset == 0 else (sc._KERNEL, sc._K1)
+    n, m = mine.launches, other.launches
     got = _sc_op(x, w, bias, d, res)
     again = _sc_op(x, w, bias, d, res)
     torch.cuda.synchronize()
-    assert sc._KERNEL.launches == n + 2 and got.dtype == torch.bfloat16 and got.shape == (b, c_out, t)
+    assert (mine.launches - n, other.launches - m) == (2, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, c_out, t)
     assert torch.equal(got, again)
     _sc_check(got, x, w, bias, d, res)
 
@@ -667,12 +670,12 @@ def test_same_conv_refuses_what_it_does_not_take(dev):
     raise; nothing launches."""
     sc = _same_conv_ops()
     x, w, bias, _ = _sc_case(48, 48, 7, 1, 50, dev, seed=0)
-    n = sc._KERNEL.launches
+    n = sc._KERNEL.launches + sc._K1.launches
     bad = [(x.float(), w, 1), (x, w[..., :6], 1), (x[:, :40], w[:, :40], 1), (x, w[:40], 1), (x, w, 11)]
     for xi, wi, d in bad:
         with pytest.raises(ValueError):
             sc.launch(xi, wi, bias[: wi.shape[0]], None, d)
-    assert sc._KERNEL.launches == n
+    assert sc._KERNEL.launches + sc._K1.launches == n
 
 
 @pytest.mark.parametrize("c_in,c_out,k,d,residual", [(48, 48, 7, 3, False), (96, 96, 1, 1, True),
@@ -701,28 +704,32 @@ def test_same_conv_gradient_against_plain_autograd(dev, c_in, c_out, k, d, resid
 
 
 def test_same_conv_under_no_grad_keeps_no_graph(dev):
-    """Under no_grad the op launches the kernel alone: no autograd node, no
-    other device operation."""
+    """Under no_grad the op launches one kernel of ``csrc/same_conv.cu``
+    alone, the stencil kernel at a k 7 conv and the GEMM path at a k 1
+    conv: no autograd node, no other device operation."""
     sc = _same_conv_ops()
-    x, w, bias, res = _sc_case(96, 96, 1, 2, 512, dev, seed=3)
-    w.requires_grad_()
-    _sc_op(x, w, bias, 1, res)  # the weight tables, built once
-    torch.cuda.synchronize()
-    n = sc._KERNEL.launches
-    with torch.no_grad(), torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out = _sc_op(x, w, bias, 1, res)
+    for k, entry, name in ((7, sc._KERNEL, "same_conv"), (1, sc._K1, "k1conv")):
+        x, w, bias, res = _sc_case(96, 96, k, 2, 512, dev, seed=3)
+        w.requires_grad_()
+        _sc_op(x, w, bias, 1, res)  # the weight tables, built once
         torch.cuda.synchronize()
-    assert out.grad_fn is None and not out.requires_grad and sc._KERNEL.launches == n + 1
-    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert names and all("same_conv" in k for k in names), names
+        n, n_all = entry.launches, sc._KERNEL.launches + sc._K1.launches
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = _sc_op(x, w, bias, 1, res)
+            torch.cuda.synchronize()
+        assert out.grad_fn is None and not out.requires_grad
+        assert entry.launches == n + 1 and sc._KERNEL.launches + sc._K1.launches == n_all + 1
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all(name in key for key in names), (k, names)
 
 
 def test_bf16_codec_launches_the_kernel_fifty_times(dev):
-    """One bfloat16 encode and decode: 25 launches each; the latent and the
-    waveform within 5% rms of the plain versions' (the kernel moves
-    roundings only; 5% is the benchmark's limit on the bfloat16 decode
-    against float32)."""
+    """One bfloat16 encode and decode: 25 launches each, the 12 k 1 convs
+    of each on the GEMM path and the 13 others on the stencil kernel; the
+    latent and the waveform within 5% rms of the plain versions' (the
+    kernels move roundings only; 5% is the benchmark's limit on the
+    bfloat16 decode against float32)."""
     from nawc_tpu_torch.codec.model import SnacCodec
 
     sc = _same_conv_ops()
@@ -730,11 +737,11 @@ def test_bf16_codec_launches_the_kernel_fifty_times(dev):
     model = SnacCodec(CodecConfig(compute_dtype="bfloat16")).to(dev).eval()
     wav = torch.randn(2, 24_576, device=dev) * 0.1
     with torch.no_grad():
-        n = sc._KERNEL.launches
+        n, n1 = sc._KERNEL.launches, sc._K1.launches
         z = model.encoder(wav)
-        assert sc._KERNEL.launches == n + 25
+        assert (sc._KERNEL.launches - n, sc._K1.launches - n1) == (13, 12)
         y = model.decoder(z)
-        assert sc._KERNEL.launches == n + 50
+        assert (sc._KERNEL.launches - n, sc._K1.launches - n1) == (26, 24)
         with _lib.plain_versions():
             z_p = model.encoder(wav)
             y_p = model.decoder(z)

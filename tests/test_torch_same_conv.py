@@ -1,5 +1,7 @@
 """The convolution op (``ops.conv``) on the CPU at the convs that the
-stride-1 kernel (``ops.same_conv``) takes, and the routes of ``SameConv1d``.
+stride-1 kernel (``ops.same_conv``) takes, and the routes of ``SameConv1d``;
+the binding's choice between the stencil kernel and the k = 1 GEMM path, on
+the CPU with the launch stubbed and, marked ``cuda``, on the card.
 
 On the CPU the op must be, bit for bit at every geometry of the codec's
 stride-1 convolutions, the arithmetic written out in :func:`_want` (F.pad,
@@ -8,16 +10,22 @@ bfloat16, then the residual's ``x + y``), so that the JAX parity tests of
 the bfloat16 codec hold through the op.
 """
 
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from nawc_tpu_torch.codec import layers
+from nawc_tpu_torch.codec.model import SnacCodec
 from nawc_tpu_torch.ops import _lib, dwconv
 from nawc_tpu_torch.ops import conv as conv_op
 from nawc_tpu_torch.ops import same_conv as sc
+from nawc_tpu_torch.tools.conv_layers import k1_geometries
 from nawc_tpu_torch.utils import profiling
+from nawc_tpu_torch.utils.config import CodecConfig
 
 # (C_in, C_out, k, dilation, residual): the ResidualUnits' Conv_0 at d = 1,
 # 3, 9 and Conv_1 (k 1, with the unit's residual), the encoder's Conv_1 (k 3)
@@ -199,3 +207,219 @@ def test_takes_names_the_kernel_domain():
     assert not sc.takes(x, 48, 48, 9, 1, 1, 1)    # k > 7
     assert not sc.takes(x.float(), 48, 48, 7, 1, 1, 1)
     assert not sc.takes(x, 40, 48, 7, 1, 1, 1)
+
+
+# ---------------------------------------------------------------- the k = 1 GEMM path
+
+# (case, k, T, x's offset in elements, the residual's offset, residual) -> the GEMM path?
+# TMA reads rows of 16 bytes: T a multiple of 8, x, the residual and the output 16-byte aligned
+K1_ROUTES = [("k 1", 1, 64, 0, 0, True, True), ("k 1 T 8 no residual", 1, 8, 0, 0, False, True),
+             ("k 7", 7, 64, 0, 0, True, False), ("k 3", 3, 64, 0, 0, False, False),
+             ("T 37", 1, 37, 0, 0, True, False), ("T 60", 1, 60, 0, 0, False, False),
+             ("x off 2 bytes", 1, 64, 1, 0, True, False), ("residual off 8 bytes", 1, 64, 0, 4, True, False),
+             ("x 16 bytes on", 1, 64, 8, 0, False, True)]
+
+
+def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """`t`'s values in a contiguous tensor `offset` elements into a flat buffer."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
+@pytest.fixture
+def stubbed_card(monkeypatch):
+    """``ops.conv.conv1d`` on the card's route with both C entries of
+    ``csrc/same_conv.cu`` stubbed: -> the list of (entry, args) they were
+    called with.  The entries' launch counting runs as on the card."""
+    calls = []
+    monkeypatch.setattr(_lib, "use_kernel", lambda x: True)
+    monkeypatch.setattr(sc, "_check", lambda *a: None)
+    monkeypatch.setattr(_lib, "stream", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    for entry in (sc._KERNEL, sc._K1):
+        monkeypatch.setattr(entry, "_fn", lambda *a, _e=entry.name: calls.append((_e, a)) or 0)
+    return calls
+
+
+@pytest.mark.parametrize("case,k,t,x_off,r_off,residual,gemm", K1_ROUTES, ids=[r[0] for r in K1_ROUTES])
+def test_launch_takes_the_gemm_path_by_shape_and_counts_both(stubbed_card, case, k, t, x_off, r_off, residual,
+                                                             gemm):
+    """The binding's route by shape and alignment, the launch stubbed: the
+    GEMM path's entry takes k 1 convs with T a multiple of 8 and 16-byte
+    aligned x and residual, the stencil's every other conv; each entry
+    counts its own launches: ``launches.k1conv`` the GEMM path's,
+    ``launches.same_conv`` the stencil's."""
+    x, w, bias, res = _case(48, 64, k, 2, t, seed=t + k)
+    x, res = _offset(x, x_off), _offset(res, r_off) if residual else None
+    assert sc.gemm_path(x, res, torch.empty(2, 64, t), k) == gemm
+    before = {n: profiling.total(f"launches.{n}") for n in ("same_conv", "k1conv")}
+    with torch.no_grad():
+        y = conv_op.conv1d(x, w, bias, 1, _same(k, 1), 1, 1, res)
+    assert y.shape == (2, 64, t) and y.dtype == torch.bfloat16
+    entry, args = stubbed_card[0]
+    assert [c[0] for c in stubbed_card] == ["k1conv" if gemm else "same_conv"]
+    assert args[5:9] == (2, 48, 64, t) and len(args) == (10 if gemm else 12)
+    assert (args[3].value is None) == (res is None)
+    assert {n: profiling.total(f"launches.{n}") - before[n] for n in before} == {"same_conv": int(not gemm),
+                                                                                 "k1conv": int(gemm)}
+
+
+def test_gemm_path_refuses_nothing_of_the_stencils_domain_it_does_not_take():
+    """k 1 at each T in 1..40 and at the codecs' own lengths: the GEMM path
+    exactly where T % 8 == 0."""
+    lengths = list(range(1, 41)) + sorted({g[4] for cfg, n in CODECS for g in k1_geometries(cfg, n)})
+    for t in lengths:
+        x = torch.zeros(1, 16, t, dtype=torch.bfloat16)
+        assert sc.gemm_path(x, None, torch.zeros(1, 16, t, dtype=torch.bfloat16), 1) == (t % 8 == 0)
+
+
+CODECS = [(CodecConfig(), 98_304), (CodecConfig.snac_44khz(), 184_320)]
+# small widths of both layouts: (config, samples of one encode)
+SMALL_CODECS = [(CodecConfig(encoder_dim=8, encoder_rates=(2, 4, 8, 8), latent_dim=64, decoder_dim=64,
+                            decoder_rates=(8, 8, 4, 2), codebook_size=128, codebook_dim=8, vq_strides=(4, 2, 1)),
+                 4096),
+                (CodecConfig.snac_44khz(encoder_dim=8, encoder_rates=(2, 3, 2, 2), latent_dim=128,
+                                        decoder_dim=256, decoder_rates=(2, 2, 3, 2), codebook_size=64,
+                                        codebook_dim=8, vq_strides=(8, 4, 2, 1), attn_window=4), 768)]
+
+
+@pytest.mark.parametrize("cfg,samples", SMALL_CODECS, ids=["codec24k layout", "snac layout"])
+def test_k1_geometries_are_the_codecs_k1_convs_in_order(cfg, samples):
+    """``tools.conv_layers.k1_geometries`` against the k 1 stride-1 convs
+    that an encode and decode of a small codec of each layout runs (forward
+    hooks), and the counts at the benchmark's sizes: 24 and 29."""
+    model = SnacCodec(cfg).eval()
+    seen = []
+    for m in model.modules():
+        if isinstance(m, layers.SameConv1d) and m.kernel_size[0] == m.stride[0] == m.groups == 1:
+            m.register_forward_hook(lambda mod, a, kw, out: seen.append(
+                (mod.in_channels, mod.out_channels, kw.get("residual") is not None, mod.bias is not None,
+                 a[0].shape[-1])), with_kwargs=True)
+    with torch.no_grad():
+        model.decoder(model.encoder(torch.zeros(2, samples)))
+    assert seen == k1_geometries(cfg, samples)
+    assert [len(k1_geometries(c, n)) for c, n in CODECS] == [24, 29]
+
+
+@pytest.fixture
+def recorder():
+    """The span recorder, cleared and on; off and cleared after the test."""
+    profiling.disable()
+    profiling.snapshot()
+    profiling.enable()
+    yield profiling
+    profiling.disable()
+    profiling.snapshot()
+
+
+@pytest.mark.parametrize("case,k,stride,groups,dtype,spans", [
+    ("k 1", 1, 1, 1, torch.bfloat16, ["codec.k1conv"]), ("k 1 float32", 1, 1, 1, torch.float32, ["codec.k1conv"]),
+    ("k 7", 7, 1, 1, torch.bfloat16, []), ("depthwise k 7", 7, 1, 16, torch.bfloat16, ["codec.dwconv"]),
+    ("k 1 stride 2", 1, 2, 1, torch.bfloat16, []), ("k 1 groups 2", 1, 1, 2, torch.bfloat16, []),
+])
+def test_k1conv_span_wraps_the_k1_convs_alone(recorder, case, k, stride, groups, dtype, spans):
+    """``SameConv1d`` opens ``codec.k1conv`` around each stride-1, one-group
+    k 1 conv, in either type, and around no other conv."""
+    conv = layers.SameConv1d(16, 16, k, stride=stride, groups=groups)
+    with torch.no_grad():
+        conv(torch.randn(2, 16, 40).to(dtype), **({"residual": torch.randn(2, 16, 40).to(dtype)}
+                                                 if stride == 1 else {}))
+    assert [s["name"] for s in recorder.snapshot()["spans"]] == spans
+
+
+def test_k1conv_span_opens_inside_the_noise_blocks_and_residual_units(recorder):
+    """A ResidualUnit's Conv_1 and a noise block's conv each run in a span
+    ``codec.k1conv`` (the noise block's inside its ``codec.noise``)."""
+    unit = layers.ResidualUnit(16, dilation=3, depthwise=True)
+    noise = layers.NoiseBlock(16, layers.NoiseKey(0))
+    with torch.no_grad():
+        noise(unit(torch.randn(2, 16, 40).to(torch.bfloat16)))
+    spans = recorder.snapshot()["spans"]
+    assert [s["name"] for s in spans] == ["codec.dwconv", "codec.k1conv", "codec.noise", "codec.k1conv"]
+    assert spans[3]["parent"] == spans[2]["id"] and spans[1]["parent"] is None
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_helpers():
+    """``_sc_case`` and ``_sc_check`` of the kernel tests: the stencil
+    kernel's bar."""
+    import test_torch_kernels_cuda as kc
+
+    return kc._sc_case, kc._sc_check
+
+
+def _k1_on_card(dev, c_in, c_out, residual, bias, b, t, seed):
+    """The op at a k 1 conv on the card against the stencil kernel's bar
+    (``_sc_check``; without a bias: the zero bias it adds, bit for bit);
+    two runs bit for bit; one GEMM launch each, and none of the stencil
+    kernel."""
+    case, check = _card_helpers()
+    x, w, bias_t, res = case(c_in, c_out, 1, b, t, dev, seed=seed)
+    res = res if residual else None
+    bias_t = bias_t if bias else None
+    n1, n = sc._K1.launches, sc._KERNEL.launches
+    got = conv_op.conv1d(x, w, bias_t, 1, 0, 1, 1, res)
+    again = conv_op.conv1d(x, w, bias_t, 1, 0, 1, 1, res)
+    torch.cuda.synchronize()
+    assert (sc._K1.launches - n1, sc._KERNEL.launches - n) == (2, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, c_out, t) and torch.equal(got, again)
+    zero = torch.zeros(c_out, device=dev)
+    if not bias:
+        assert torch.equal(got, conv_op.conv1d(x, w, zero, 1, 0, 1, 1, res))
+    return check(got, x, w, bias_t if bias else zero, 1, res)
+
+
+_K1_GEOMETRIES = sorted({g for cfg, n in CODECS for g in k1_geometries(cfg, n)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,residual,bias,t", _K1_GEOMETRIES)
+def test_k1_path_is_the_plain_version_at_every_codec_geometry(dev, c_in, c_out, residual, bias, t):
+    """Each of SNAC 44 kHz's 29 and codec24k's 24 k 1 convs (13 and 4
+    geometries) at its own T on two clips, held to the plain version by the
+    stencil kernel's bar; the noise blocks' convs without bias or residual."""
+    _k1_on_card(dev, c_in, c_out, residual, bias, 2, t, seed=c_in + t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,residual,bias,t", [(64, 64, True, True, 184_320), (96, 96, False, False, 184_320),
+                                                        (768, 768, True, True, 3840), (1024, 1536, False, True, 480)])
+def test_k1_path_at_the_full_batch(dev, c_in, c_out, residual, bias, t):
+    """The narrowest, the widest and the head's k 1 convs of SNAC at its 16 x
+    4 s batch."""
+    _k1_on_card(dev, c_in, c_out, residual, bias, 16, t, seed=t + c_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,residual,b,t", [(64, 64, True, 1, 8), (48, 80, True, 1, 480),
+                                                     (192, 176, False, 3, 1000), (1024, 208, True, 2, 136),
+                                                     (96, 1552, False, 1, 24)])
+def test_k1_path_at_b1_and_a_c_out_off_its_tiles(dev, c_in, c_out, residual, b, t):
+    """B = 1, C_out not a multiple of the 64- or 128-channel tiles, C_in not
+    of the 64-channel stages, T one stage long or ragged in its tile."""
+    _k1_on_card(dev, c_in, c_out, residual, True, b, t, seed=c_out + t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,offset", [(301, 0), (100, 0), (704, 1)])
+def test_k1_conv_off_tmas_rows_runs_on_the_stencil_kernel(dev, t, offset):
+    """A k 1 conv with T % 8 != 0, or x off 16 bytes, runs on the stencil
+    kernel: one ``same_conv`` launch, no ``k1conv`` one, within its bar."""
+    case, check = _card_helpers()
+    x, w, bias, res = case(96, 96, 1, 2, t, dev, seed=t, offset=offset)
+    n1, n = sc._K1.launches, sc._KERNEL.launches
+    got = conv_op.conv1d(x, w, bias, 1, 0, 1, 1, res)
+    torch.cuda.synchronize()
+    assert (sc._K1.launches - n1, sc._KERNEL.launches - n) == (0, 1)
+    check(got, x, w, bias, 1, res)
