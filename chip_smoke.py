@@ -51,8 +51,10 @@ Phases, each printing its seconds:
    plain version (every output within its ulp bar, two runs bit for bit),
    with their device time beside the plain version's, cuDNN's bfloat16
    ``F.conv1d`` and the bound, then the k 1 GEMM path (``k1conv``) at SNAC
-   44 kHz's 29 k 1 convs, the sums of the stencil kernel's 26 convs and of
-   each codec's k 1 convs apart; and the depthwise convolution kernel
+   44 kHz's 29 k 1 convs, then Mimi's 16 x 30 s encode and decode: its 10
+   causal k 3 / k 7 convs on the stencil kernel at their left pad and its
+   8 k 1 convs on the GEMM path, the sums of each codec's stencil convs and
+   of its k 1 convs apart; and the depthwise convolution kernel
    (``csrc/dwconv.cu``) likewise at the 26 depthwise convolutions of one
    SNAC 44 kHz 16 x 4 s encode and decode, beside ATen's grouped bfloat16
    ``F.conv1d``;
@@ -172,7 +174,14 @@ Phases, each printing its seconds:
    (its configuration's codec block, weights drawn on the card by
    ``port_bench/weights_snac.py``) on 16 clips x 4 s at 44.1 kHz: one call,
    counted from zero after a warm call, must launch the depthwise kernel 26
-   times and the stride-1 kernel 29 times; its ms per call.
+   times and the stride-1 kernel 29 times; its ms per call;
+17. Mimi bf16 main path: ``entry(codec)``'s ``fn`` with the Mimi bfloat16
+   codec that the benchmark cell ``mimi-roundtrip-bf16`` runs (its
+   configuration's codec block, weights drawn on the card by
+   ``port_bench/weights_mimi.py``) on 16 clips x 30 s at 24 kHz: one call,
+   counted from zero after a warm call, must launch the stencil kernel 10
+   times (its causal k 3 / k 7 convs) and the k 1 GEMM path 8 times; its
+   ms per call.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -1074,15 +1083,16 @@ def device_ms_retried(fn, tries: int = 3) -> float:
     return ms
 
 
-def _same_conv_row(dev, seed: int, c_in, c_out, k, d, residual, t, bias=True) -> dict:
-    """One stride-1 conv of the kernels of ``csrc/same_conv.cu`` at the 16 x
-    4 s batch: the op against its plain version (the bar of
+def _same_conv_row(dev, seed: int, c_in, c_out, k, d, left, residual, t, bias=True) -> dict:
+    """One stride-1 conv of the kernels of ``csrc/same_conv.cu`` on a batch
+    of 16 at T = `t`, padded by `left` zeros on the left and d (k - 1) -
+    `left` on the right: the op against its plain version (the bar of
     :func:`check_same_conv`), two runs bit for bit, and device ms of the op,
     of its plain version and of cuDNN's bfloat16 ``F.conv1d`` at the same
-    padding (a yardstick only), and the bound (the larger of its bytes at
-    3.35 TB/s and FLOPs at 989 TFLOP/s).  The op's first call must launch
-    the GEMM path at k 1 and the stencil kernel at any other k, once.
-    -> the row."""
+    padding (a yardstick only; ``F.pad`` first where the padding is
+    uneven), and the bound (the larger of its bytes at 3.35 TB/s and FLOPs
+    at 989 TFLOP/s).  The op's first call must launch the GEMM path at k 1
+    and the stencil kernel at any other k, once.  -> the row."""
     from nawc_tpu_torch.ops import same_conv as sc
     from nawc_tpu_torch.ops.conv import conv1d
 
@@ -1091,11 +1101,12 @@ def _same_conv_row(dev, seed: int, c_in, c_out, k, d, residual, t, bias=True) ->
     w = torch.randn((c_out, c_in, k), generator=gen, device=dev) / (c_in * k) ** 0.5
     b = torch.randn((c_out,), generator=gen, device=dev) * 0.1 if bias else None
     res = torch.randn((BATCH, c_out, t), generator=gen, device=dev).to(torch.bfloat16) if residual else None
-    p = d * (k - 1) // 2
-    name = f"same_conv {c_in}->{c_out} k{k} d{d}{' +res' if residual else ''}{'' if bias else ' no bias'} T {t}"
+    pads = (left, d * (k - 1) - left)
+    name = (f"same_conv {c_in}->{c_out} k{k} d{d}{' +res' if residual else ''}{'' if bias else ' no bias'} "
+            f"T {t}{'' if pads[0] == pads[1] else f' causal, left pad {left}'}")
 
-    def op(r):  # the conv op at SAME padding: the kernel, or the plain version under plain_versions
-        return conv1d(x, w, b, 1, lambda n: (p, p), d, 1, r)
+    def op(r):  # the conv op at its padding: the kernel, or the plain version under plain_versions
+        return conv1d(x, w, b, 1, lambda n: pads, d, 1, r)
 
     mine, other = (sc._K1, sc._KERNEL) if k == 1 else (sc._KERNEL, sc._K1)
     with torch.no_grad():
@@ -1106,12 +1117,12 @@ def _same_conv_row(dev, seed: int, c_in, c_out, k, d, residual, t, bias=True) ->
         with _lib.plain_versions():
             want = op(res)
             y = op(None) if residual else want
-        acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float(),
+        acc = torch.nn.functional.conv1d(torch.nn.functional.pad(x, pads).float(),
                                          w.to(torch.bfloat16).float(), None, 1, 0, d)
         scale = torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs())
         ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0**-126))) - 7)
         off = (got.float() - want.float()).abs()
-        sums = torch.nn.functional.conv1d(torch.nn.functional.pad(x, (p, p)).float().abs(),
+        sums = torch.nn.functional.conv1d(torch.nn.functional.pad(x, pads).float().abs(),
                                           w.to(torch.bfloat16).float().abs(), None, 1, 0, d)
         past = int((off > 2 * ulp + sums * (c_in * k * 2.0**-22)).sum())
         ulps, err = float((off / ulp).max()), float(off.max())
@@ -1121,7 +1132,11 @@ def _same_conv_row(dev, seed: int, c_in, c_out, k, d, residual, t, bias=True) ->
         with _lib.plain_versions():
             plain_ms = device_ms_retried(lambda: op(res))
         wb, bb = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
-        lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, p, d))
+        if pads[0] == pads[1]:
+            lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(x, wb, bb, 1, left, d))
+        else:
+            lib_ms = device_ms_retried(lambda: torch.nn.functional.conv1d(torch.nn.functional.pad(x, pads),
+                                                                          wb, bb, 1, 0, d))
     check(past == 0, f"{name}: {past} outputs off plain past their bar")
     nbytes, flops = sc.bound_counts(BATCH, c_in, c_out, t, k, residual)
     bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
@@ -1143,7 +1158,10 @@ def check_same_conv(dev) -> dict:
     encode and decode (each distinct geometry once, counted as often as the
     codec runs it: 26 on the stencil kernel, 24 k 1 convs on the GEMM path),
     then the GEMM path alone at the 29 k 1 convs of one SNAC 44 kHz encode
-    and decode: every
+    and decode, then Mimi's at one 16 x 30 s encode and decode: its 10
+    causal k 3 / k 7 convs on the stencil kernel at their left pad
+    (``causal_geometries``: T from 720,000 down to 750, which is not a
+    multiple of 8) and its 8 k 1 convs on the GEMM path; every
     output within two bfloat16 ulps of the largest of |acc|, |y| and |out|
     of plain (a flip of RN(acc) and the two adds after it) plus K 2^-22 sum
     |products| (two float32 sums of the K = C_in k products in different
@@ -1152,23 +1170,35 @@ def check_same_conv(dev) -> dict:
     bfloat16 ``F.conv1d`` at the same padding (a yardstick only), and the
     bound: per launch the larger of its bytes at 3.35 TB/s and FLOPs at 989
     TFLOP/s, summed.  -> the records of ``same_conv`` (the stencil
-    kernel's 26 convs) and ``k1conv`` (SNAC's 29, with codec24k's 24 under
-    ``"codec24k"``)."""
-    from nawc_tpu_torch.tools.conv_layers import k1_geometries, stride1_geometries
+    kernel's 26 convs, with Mimi's 10 under ``"mimi"``) and ``k1conv``
+    (SNAC's 29, with codec24k's 24 under ``"codec24k"`` and Mimi's 8 under
+    ``"mimi"``)."""
+    from nawc_tpu_torch.tools.conv_layers import causal_geometries, k1_geometries, stride1_geometries
 
-    counts: dict[tuple, int] = {}
-    for g in stride1_geometries():
-        counts[g] = counts.get(g, 0) + 1
-    rows = [(_same_conv_row(dev, 40 + i, *g), n, g[2]) for i, (g, n) in enumerate(sorted(counts.items()))]
-    snac: dict[tuple, int] = {}
-    for g in k1_geometries(CodecConfig.snac_44khz(), 184_320):
-        snac[g] = snac.get(g, 0) + 1
+    def tally(geometries):
+        counts: dict[tuple, int] = {}
+        for g in geometries:
+            counts[g] = counts.get(g, 0) + 1
+        return sorted(counts.items())
+
+    rows = [(_same_conv_row(dev, 40 + i, c_in, c_out, k, d, d * (k - 1) // 2, res, t), n, k)
+            for i, ((c_in, c_out, k, d, res, t), n) in enumerate(tally(stride1_geometries()))]
+
+    def k1_rows(geometries, seed):
+        return [(_same_conv_row(dev, seed + i, c_in, c_out, 1, 1, 0, res, t, bias), n)
+                for i, ((c_in, c_out, res, bias, t), n) in enumerate(tally(geometries))]
+
+    mimi = CodecConfig.mimi()
     sums = {"same_conv": _summed([(r, n) for r, n, k in rows if k != 1]),
             "k1conv codec24k": _summed([(r, n) for r, n, k in rows if k == 1]),
-            "k1conv snac44k": _summed([(_same_conv_row(dev, 90 + i, c_in, c_out, 1, 1, res, t, bias), n)
-                                       for i, ((c_in, c_out, res, bias, t), n) in enumerate(sorted(snac.items()))])}
-    for (what, r), n in zip(sums.items(), (26, 24, 29)):
-        print(f"{what}, its {n} launches of one {BATCH} x {SECONDS} s encode and decode: {r['ms']:.3f} ms "
+            "k1conv snac44k": _summed(k1_rows(k1_geometries(CodecConfig.snac_44khz(), 184_320), 90)),
+            "same_conv mimi": _summed([(_same_conv_row(dev, 120 + i, c_in, c_out, k, d, left, False, t), n)
+                                       for i, ((c_in, c_out, k, d, left, t), n)
+                                       in enumerate(tally(causal_geometries(mimi, 720_000)))]),
+            "k1conv mimi": _summed(k1_rows(k1_geometries(mimi, 720_000), 140))}
+    for (what, r), (n, clip) in zip(sums.items(), [(26, "4 s"), (24, "4 s"), (29, "4 s"), (10, "30 s"),
+                                                   (8, "30 s")]):
+        print(f"{what}, its {n} launches of one {BATCH} x {clip} encode and decode: {r['ms']:.3f} ms "
               f"(plain {r['plain']:.3f}, cuDNN {r['lib']:.3f}, bound {r['bound']:.3f}: "
               f"{100 * r['bound'] / r['ms']:.0f}% of it); largest {r['ulps']:g} ulps off plain")
 
@@ -1176,8 +1206,9 @@ def check_same_conv(dev) -> dict:
         return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"], bound_ms=r["bound"],
                     bound_by="bytes and operations, the larger a launch", library_ms=r["lib"])
 
-    return {"same_conv": record(sums["same_conv"]),
-            "k1conv": dict(record(sums["k1conv snac44k"]), codec24k=record(sums["k1conv codec24k"]))}
+    return {"same_conv": dict(record(sums["same_conv"]), mimi=record(sums["same_conv mimi"])),
+            "k1conv": dict(record(sums["k1conv snac44k"]), codec24k=record(sums["k1conv codec24k"]),
+                           mimi=record(sums["k1conv mimi"]))}
 
 
 def check_dwconv(dev) -> dict:
@@ -2414,6 +2445,48 @@ def snac_phase(dev, n_clips: int = BATCH, seconds: float = SECONDS, seed: int = 
     return dict(launches=launches, ms=ms)
 
 
+# ------------------------------------------------------------------ phase 17
+
+MIMI_CONFIG = REPO / "port_bench" / "configs" / "mimi-bf16.json"
+
+
+def mimi_phase(dev, n_clips: int = BATCH, seconds: float = 30.0, seed: int = 29) -> dict:
+    """The path of the benchmark cell ``mimi-roundtrip-bf16``:
+    ``entry(codec)``'s ``fn`` (embed -> pad, Mimi's causal SEANet encoder,
+    transformer and downsampler, the split Euclidean RVQ, the upsampler,
+    transformer and SEANet decoder -> detect) with the Mimi codec built as
+    the cell builds it, on `n_clips` x `seconds` s of seeded noise at 24
+    kHz.  After one warm call the launch counts are reset; the next call
+    must launch the stencil kernel (``same_conv``) 10 times (the causal
+    k 3 / k 7 convs), its 8 k 1 convs on the GEMM path (``k1conv``), the
+    depthwise kernel not at all, and give finite outputs.  -> its launches
+    and ms per call."""
+    from port_bench.weights_mimi import make_codec as mimi_codec
+
+    codec, _ = mimi_codec(json.loads(MIMI_CONFIG.read_text())["codec"], seed, dev)
+    fn, (_, msg0) = entry(codec, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wav = torch.randn(n_clips, int(seconds * codec.cfg.sample_rate), generator=gen, device=dev) * 0.1
+    msg = torch.randint(0, 2, (n_clips, msg0.shape[1]), generator=gen, device=dev, dtype=torch.int32)
+    fn(wav, msg)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    outs = fn(wav, msg)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in _lib.KERNELS.items()}
+    print(f"one Mimi bf16 call, {n_clips} x {seconds} s: launches {launches}")
+    check(launches["same_conv"] == 10,
+          f"one Mimi bf16 call launched same_conv {launches['same_conv']} times, not 10")
+    check(launches["k1conv"] == 8, f"one Mimi bf16 call took the k1 GEMM path {launches['k1conv']} times, not 8")
+    check(launches["dwconv"] == 0, f"one Mimi bf16 call launched dwconv {launches['dwconv']} times, not 0")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs), "the Mimi bf16 call is not finite")
+    ms = wall_ms(lambda: fn(wav, msg), iters=5, warmup=1)
+    print(f"Mimi bf16 entry: {ms:.2f} ms a call ({n_clips * seconds / (ms / 1e3):.1f} s of audio a s)")
+    del fn, codec, outs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -2627,6 +2700,9 @@ def main() -> int:
     with phase("16 SNAC bf16 main path"):
         snac = snac_phase(dev)
 
+    with phase("17 Mimi bf16 main path"):
+        mimi = mimi_phase(dev)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the draw kernel replaces XLA's fusion of jax.random (threefry, erf_inv) in
     # the JAX package's noise draws, the Snake kernels XLA's fusion of
@@ -2641,7 +2717,8 @@ def main() -> int:
              "k1conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
              "dwconv": ("dwconv.cu", "none: the JAX package has no depthwise convolution")}
     on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"],
-          "bf16 codec (phase 9)": bf16_launches, "SNAC bf16 main path (phase 16)": snac["launches"]}
+          "bf16 codec (phase 9)": bf16_launches, "SNAC bf16 main path (phase 16)": snac["launches"],
+          "Mimi bf16 main path (phase 17)": mimi["launches"]}
     kernels = []
     for n, (src, replaces) in files.items():
         r = rec[n]
@@ -2666,6 +2743,7 @@ def main() -> int:
             "interp_launches": interp["launches"][n],
             "quality_parallel_launches": qp["launches"][n],
             "snac_launches": snac["launches"][n],
+            "mimi_launches": mimi["launches"][n],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

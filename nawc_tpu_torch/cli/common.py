@@ -63,22 +63,27 @@ def load_audio_clips(
     return out
 
 
-CODEC_SIZES = ("full", "small", "snac44k")  # the --codec_size choices
+CODEC_SIZES = ("full", "small", "snac44k", "mimi")  # the --codec_size choices
 
 
 def load_codec(ckpt: str | None, size: str = "full", device: str | torch.device = "cuda"):
     """A CodecState: JAX's seed-0 init of the `size` config (one of
     :data:`CODEC_SIZES`; "snac44k" is SNAC 44 kHz's published
-    architecture), with the weights of `ckpt` when it exists."""
+    architecture, "mimi" kyutai/mimi's, with weights drawn from seed 0),
+    with the weights of `ckpt` when it exists (never for "mimi", which has
+    no flax checkpoint form)."""
     from ..codec import load_codec as read_codec
     from ..codec import make_codec
     from ..utils.config import CodecConfig
 
     if size not in CODEC_SIZES:
         raise ValueError(f"load_codec: size {size!r} is none of {CODEC_SIZES}")
-    cfg = {"full": CodecConfig, "snac44k": CodecConfig.snac_44khz}.get(size, lambda: CodecConfig(
-        encoder_dim=8, latent_dim=64, decoder_dim=64, codebook_size=128, codebook_dim=8
-    ))()
+    cfg = {"full": CodecConfig, "snac44k": CodecConfig.snac_44khz, "mimi": CodecConfig.mimi}.get(
+        size, lambda: CodecConfig(encoder_dim=8, latent_dim=64, decoder_dim=64, codebook_size=128,
+                                  codebook_dim=8))()
+    if size == "mimi" and ckpt and Path(ckpt).exists():
+        print(f"[codec] Mimi has no flax checkpoint form: {ckpt} not read")
+        ckpt = None
     if ckpt and Path(ckpt).exists():
         codec = read_codec(ckpt, cfg, device=device)
         print(f"[codec] restored weights from {ckpt}")

@@ -1,7 +1,8 @@
-from .api import CodecState, codec_from_flax, load_codec, make_codec
+from .api import MODELS, CodecState, codec_from_flax, load_codec, make_codec
+from .mimi import MimiCodec
 from .model import Decoder, Encoder, ResidualVQ, SnacCodec, VQLevel
 
 __all__ = [
-    "SnacCodec", "Encoder", "Decoder", "ResidualVQ", "VQLevel",
-    "CodecState", "make_codec", "load_codec", "codec_from_flax",
+    "SnacCodec", "MimiCodec", "Encoder", "Decoder", "ResidualVQ", "VQLevel",
+    "CodecState", "MODELS", "make_codec", "load_codec", "codec_from_flax",
 ]

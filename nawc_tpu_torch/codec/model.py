@@ -210,6 +210,8 @@ class SnacCodec(nn.Module):
 
     def __init__(self, cfg: CodecConfig = CodecConfig()):
         super().__init__()
+        if cfg.layout == "mimi":
+            raise ValueError("SnacCodec: the 'mimi' layout is MimiCodec's (codec/mimi.py)")
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.quantizer = ResidualVQ(cfg)
@@ -252,3 +254,13 @@ class SnacCodec(nn.Module):
         """encode -> quantize -> decode (the LALM attack inner op)."""
         z_q, _, _, _ = self.quantizer(self.encoder(wav))
         return self.decoder(z_q)
+
+    @property
+    def projected_codebook(self) -> torch.Tensor:
+        """(K, codebook_dim) first-level codebook (the codec-latent
+        watermarks' table)."""
+        return self.quantizer.level_0.codebook
+
+    def project_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """The first VQ level's input projection (latent -> codebook_dim)."""
+        return self.quantizer.level_0.in_proj(z)

@@ -1,10 +1,13 @@
 // Stride-1 convolutions of the bfloat16 codec on the tensor cores, with
-// SAME padding, the bias and (optionally) a residual add in the kernel:
+// SAME or causal padding, the bias and (optionally) a residual add in the
+// kernel:
 //     acc[b, co, t] = sum_j sum_ci x[b, ci, t + j d - p] W[co, ci, j]   (x = 0 outside [0, T))
 //     y             = bf16(float(bf16(acc)) + bias[co])
 //     out           = res ? bf16(float(res[b, co, t]) + float(y)) : y
-// for a contiguous bfloat16 x (B, Cin, T), odd k <= 7, any dilation d with
-// p = d (k - 1) / 2 <= 32, Cin and Cout multiples of 16; bias is float32
+// for a contiguous bfloat16 x (B, Cin, T), odd k <= 7, any dilation d and a
+// left pad p in [0, d (k - 1)] (SAME: p = d (k - 1) / 2; causal, Mimi's:
+// p = d (k - 1)) whose two halos, p and d (k - 1) - p each rounded up to 8,
+// come to at most 64, Cin and Cout multiples of 16; bias is float32
 // holding bfloat16 values.  The rounding points are those of the codec's
 // plain path (nawc_tpu_torch/ops/conv.py::conv_plain): the
 // convolution rounds once to bfloat16, the bias is added in bfloat16, then
@@ -35,7 +38,7 @@
 //     copies a stage's x over the tile's times and the halo of the taps by
 //     cp.async, 16 bytes a piece, several stages ahead, into a raw tile
 //     [channel][time]; pieces outside [0, T) are zero-filled by the copy
-//     itself, which is the SAME padding: no padded copy is made.  It then transposes the stage
+//     itself, which is the padding: no padded copy is made.  It then transposes the stage
 //     (ldmatrix, stmatrix .trans) to K-major 8-channel groups of
 //     [time][8 channels], 16 bytes a time: wgmma's no-swizzle layout with a
 //     core matrix at any time, so every tap reads the same stage through a
@@ -100,7 +103,7 @@ constexpr int kBM = 256;                 // output times a tile
 constexpr int kKC = 16;                  // input channels a stage
 constexpr int kWStages = 4;              // stages of streamed weights
 constexpr int kYRow = kBM + 8;           // elements a row of the output staging
-constexpr int kMaxK = 7, kMaxPad = 32;
+constexpr int kMaxK = 7, kMaxPad = 32;  // a stage's halo: 2 kMaxPad rows beside its kBM times
 constexpr int kSmemOptin = 232448;       // H100: a block's shared memory, at most
 
 struct Args {
@@ -110,8 +113,8 @@ struct Args {
   const bf16* res;    // (B, Cout, T) or null
   bf16* out;          // (B, Cout, T)
   int B, Cin, Cout, T, k, d, p;
-  int p8;             // p rounded up to 8: a stage's row r is time t0 - p8 + r
-  int rows;           // rows of x a stage holds (a multiple of 32)
+  int p8;             // p (the left pad) rounded up to 8: a stage's row r is time t0 - p8 + r
+  int rows;           // rows of x a stage holds: kBM and both halos (a multiple of 32)
   int tiles_t, tiles_n, per_n, chunks;
   int vec_x;          // T % 8 == 0 and x 16-byte aligned: x copies in 16-byte pieces
   int vec;            // T % 8 == 0, out and res 16-byte aligned: 16-byte stores
@@ -972,15 +975,18 @@ int launch(const void* x, const void* w, const float* bias, const void* res, voi
 
 }  // namespace
 
-// out = conv(x) + bias (+ res) as above.  x (B, Cin, T), res and out (B,
-// Cout, T) contiguous bfloat16; w (k, Cout, Cin) contiguous bfloat16; bias
-// (Cout) float32.  Refuses (cudaErrorInvalidValue) what the kernel does not
-// take; launches nothing for an empty batch.
+// out = conv(x) + bias (+ res) as above, x padded by p on the left and d (k
+// - 1) - p on the right.  x (B, Cin, T), res and out (B, Cout, T)
+// contiguous bfloat16; w (k, Cout, Cin) contiguous bfloat16; bias (Cout)
+// float32.  Refuses (cudaErrorInvalidValue) what the kernel does not take;
+// launches nothing for an empty batch.
 extern "C" int nawc_same_conv(const void* x, const void* w, const float* bias, const void* res,
-                              void* out, int B, int Cin, int Cout, int T, int k, int d,
+                              void* out, int B, int Cin, int Cout, int T, int k, int d, int p,
                               void* stream) {
+  const int span = d * (k - 1);  // p on the left, span - p on the right
   if (B < 0 || T < 0 || Cin < 16 || Cin % 16 || Cout < 16 || Cout % 16 || k < 1 || k > kMaxK ||
-      k % 2 == 0 || d < 1 || d * (k - 1) / 2 > kMaxPad || ((uintptr_t)x & 1) ||
+      k % 2 == 0 || d < 1 || p < 0 || p > span ||
+      (p + 7) / 8 * 8 + (span - p + 7) / 8 * 8 > 2 * kMaxPad || ((uintptr_t)x & 1) ||
       ((uintptr_t)w & 15) || ((uintptr_t)out & 1) || ((uintptr_t)res & 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * T == 0) return 0;
@@ -996,9 +1002,9 @@ extern "C" int nawc_same_conv(const void* x, const void* w, const float* bias, c
   a.T = T;
   a.k = k;
   a.d = d;
-  a.p = d * (k - 1) / 2;
-  a.p8 = (a.p + 7) / 8 * 8;
-  a.rows = (kBM + 2 * a.p8 + 31) / 32 * 32;
+  a.p = p;
+  a.p8 = (p + 7) / 8 * 8;
+  a.rows = (kBM + a.p8 + (span - p + 7) / 8 * 8 + 31) / 32 * 32;
   a.tiles_t = (T + kBM - 1) / kBM;
   a.per_n = 1;
   a.chunks = 1;

@@ -12,7 +12,9 @@ the card   the kernel; :func:`conv_plain` under             cuDNN in x's type
 =========  ===============================================  ==================
 
 Where a gradient is wanted, a kernel's conv runs through :class:`_KernelConv`.
-Transposed convs take :func:`conv_native`.
+Transposed convs take :func:`conv_native`.  A kernel takes a conv at its
+padding, SAME's or a causal one (all zeros on the left, Mimi's), as a
+binding's ``takes`` admits it.
 """
 
 from __future__ import annotations
@@ -66,22 +68,29 @@ def _padded(conv, x, weight, bias, stride, padding, dilation, groups, residual):
     return y if residual is None else residual + y
 
 
+def _pads(padding: int | Callable[[int], tuple[int, int]], t: int) -> tuple[int, int]:
+    """(left, right) zeros of a conv's `padding` (see :func:`conv1d`) at T = `t`."""
+    return padding(t) if callable(padding) else (padding, padding)
+
+
 class _KernelConv(torch.autograd.Function):
     """A kernel's conv with a gradient.  Forward: the kernel's launch on the
     card, the plain version on the CPU (so that the tests can drive this
     wiring).  Backward: PyTorch's convolution backward of the conv at its
-    symmetric padding d (k - 1) / 2, dilation and groups, with the weight
-    in x's type, as autograd of the plain version computes it (the weight's
-    and bias's gradients cast back to their own types); the residual's
-    gradient is the output's."""
+    padding (left, right), dilation and groups, with the weight in x's type,
+    as autograd of the plain version computes it (the weight's and bias's
+    gradients cast back to their own types; at an uneven padding the
+    backward of the conv of the padded x, its gradient cut to x); the
+    residual's gradient is the output's."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, residual, kernel, padding, dilation, groups):
         ctx.save_for_backward(x, weight)
         ctx.dilation, ctx.groups = dilation, groups
+        ctx.pads = _pads(padding, x.shape[-1])
         ctx.bias_dtype = None if bias is None else bias.dtype
         if _lib.use_kernel(x):
-            return kernel.launch(x, weight, bias, residual, dilation)
+            return kernel.launch(x, weight, bias, residual, dilation, ctx.pads[0])
         return _padded(conv_plain, x, weight, bias, 1, padding, dilation, groups, residual)
 
     @staticmethod
@@ -91,10 +100,12 @@ class _KernelConv(torch.autograd.Function):
         need_x, need_w, need_b, need_res = ctx.needs_input_grad[:4]
         dx = dw = db = None
         if need_x or need_w or need_b:
-            p = ctx.dilation * (weight.shape[-1] - 1) // 2
+            left, right = ctx.pads
+            xp, p = (x, left) if left == right else (F.pad(x, (left, right)), 0)
             dx, dw, db = torch.ops.aten.convolution_backward(
-                g.contiguous(), x, weight.to(x.dtype), [weight.shape[0]], [1], [p], [ctx.dilation],
+                g.contiguous(), xp, weight.to(x.dtype), [weight.shape[0]], [1], [p], [ctx.dilation],
                 False, [0], ctx.groups, [need_x, need_w, need_b])
+            dx = dx[..., left: left + x.shape[-1]] if need_x and xp is not x else dx
             dw = dw.to(weight.dtype) if need_w else None
             db = db.to(ctx.bias_dtype) if need_b else None
         return dx, dw, db, (g if need_res else None), None, None, None, None
@@ -108,12 +119,12 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, str
     `residual` (B, C_out, T') where given, by the route of the module's
     table.  `padding` is an int, padded on both sides inside the conv, or a
     function of T that gives the (left, right) zeros padded before it
-    (``F.pad``), called only on the routes that pad so: a kernel pads
-    d (k - 1) / 2 on both sides itself, which is what its convs' padding
-    comes to."""
+    (``F.pad``); a kernel pads the same zeros itself (a binding's ``takes``
+    admits the conv at that padding)."""
     c_out, c_in_group, k = weight.shape
+    pads = _pads(padding, x.shape[-1])
     for kernel in _BINDINGS:
-        if kernel.takes(x, c_in_group * groups, c_out, k, stride, dilation, groups):
+        if kernel.takes(x, c_in_group * groups, c_out, k, stride, dilation, groups, pads):
             break
     else:
         return _padded(conv_native, x, weight, bias, stride, padding, dilation, groups, residual)
@@ -121,4 +132,4 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, str
         return _padded(conv_plain, x, weight, bias, 1, padding, dilation, groups, residual)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias, residual)):
         return _KernelConv.apply(x, weight, bias, residual, kernel, padding, dilation, groups)
-    return kernel.launch(x, weight, bias, residual, dilation)
+    return kernel.launch(x, weight, bias, residual, dilation, pads[0])

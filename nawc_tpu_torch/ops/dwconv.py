@@ -22,10 +22,11 @@ K, DILATIONS = 7, (1, 3, 9)  # the kernel's instantiations
 
 
 def takes(x: torch.Tensor, c_in: int, c_out: int, k: int, stride: int, dilation: int,
-          groups: int) -> bool:
-    """Whether the kernel computes a conv of these settings on `x`."""
+          groups: int, pads: tuple[int, int]) -> bool:
+    """Whether the kernel computes a conv of these settings on `x`, padded
+    by `pads` (left, right) zeros: SAME's d (k - 1) / 2 on both sides."""
     return (x.dtype == torch.bfloat16 and stride == 1 and groups == c_in == c_out
-            and k == K and dilation in DILATIONS)
+            and k == K and dilation in DILATIONS and pads == (dilation * (k - 1) // 2,) * 2)
 
 
 def _tables(weight: torch.Tensor, bias: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -40,7 +41,8 @@ def _tables(weight: torch.Tensor, bias: torch.Tensor | None) -> tuple[torch.Tens
     return _lib.derived(weight, "dwconv", [t for t in (weight, bias) if t is not None], make)
 
 
-def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dilation: int) -> None:
+def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dilation: int,
+           left: int) -> None:
     c, _, k = weight.shape
     if x.dtype != torch.bfloat16 or not x.is_cuda:
         raise ValueError(f"dwconv: expected a bfloat16 CUDA tensor, got {x.dtype} on {x.device}")
@@ -50,17 +52,18 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, dil
     if x.dim() != 3 or x.shape[1] != c or weight.shape[1] != 1 or (bias is not None and bias.shape != (c,)):
         raise ValueError(f"dwconv: x {tuple(x.shape)}, weight {tuple(weight.shape)}, bias "
                          f"{None if bias is None else tuple(bias.shape)}: not a depthwise conv")
-    if not takes(x, c, c, k, 1, dilation, c):
-        raise ValueError(f"dwconv: the kernel does not take k {k}, dilation {dilation}")
+    if not takes(x, c, c, k, 1, dilation, c, (left, dilation * (k - 1) - left)):
+        raise ValueError(f"dwconv: the kernel does not take k {k}, dilation {dilation}, left pad {left}")
 
 
 def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-           residual: torch.Tensor | None, dilation: int) -> torch.Tensor:
+           residual: torch.Tensor | None, dilation: int, left: int) -> torch.Tensor:
     """The kernel's conv of a (B, C, T) bfloat16 CUDA tensor (made
-    contiguous), plus `residual` where given (added after it, in bfloat16);
-    raises outside :func:`takes`."""
+    contiguous) padded by `left` zeros on the left and d (k - 1) - `left` on
+    the right (SAME's d (k - 1) / 2 alone is taken), plus `residual` where
+    given (added after it, in bfloat16); raises outside :func:`takes`."""
     x = x.contiguous()
-    _check(x, weight, bias, dilation)
+    _check(x, weight, bias, dilation, left)
     b, c, t = x.shape
     out = torch.empty_like(x)
     if out.numel():

@@ -3,6 +3,10 @@ the CUDA kernel ``csrc/rvq.cu`` and its plain PyTorch version.
 
 Lookup metric: cosine similarity over L2-normalised vectors; ties go to the
 first index, as ``jnp.argmax`` and ``torch.argmax`` give.
+
+:func:`nearest_euclidean` is Mimi's lookup (D 256, K 2048): the least
+Euclidean distance, in float32 without TF32; on the card by cuBLAS, on the
+CPU by its plain version.
 """
 
 from __future__ import annotations
@@ -76,6 +80,45 @@ def nearest_codebook(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         codes = _nearest_codebook_cuda(zf, codebook)
     else:
         codes = nearest_codebook_reference(zf, codebook.detach())
+    return codes.reshape(lead)
+
+
+def nearest_euclidean_reference(z: torch.Tensor, codebook: torch.Tensor, rows: int = 256) -> torch.Tensor:
+    """(N, D), (K, D) -> (N,) int32 codes at the least exact ||z - c||^2
+    (float32, the differences squared and summed), ties to the first index;
+    `rows` frames at a time."""
+    z, c = z.detach().float(), codebook.detach().float()
+    out = [((zb[:, None, :] - c[None]) ** 2).sum(-1).argmin(-1) for zb in torch.split(z, rows)]
+    return (torch.cat(out) if out else z.new_zeros(0, dtype=torch.long)).to(torch.int32)
+
+
+def _nearest_euclidean_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """||c||^2 - 2 z.c by one cuBLAS product (TF32 off), the norms kept
+    per codebook version, then argmin (the first index on ties)."""
+    norms = _lib.derived(codebook, "euclidean_norms", [codebook],
+                         lambda: codebook.detach().float().pow(2).sum(-1))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dist = torch.addmm(norms, z.detach().float(), codebook.detach().float().T, alpha=-2.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return dist.argmin(dim=-1).to(torch.int32)
+
+
+def nearest_euclidean(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(..., D) queries, (K, D) codebook -> (...,) int32 codes at the least
+    Euclidean distance, ties to the first index; no gradient flows.  On the
+    card ||c||^2 - 2 z.c by cuBLAS (:func:`_nearest_euclidean_cuda`), on the
+    CPU and under ``plain_versions()`` the exact distances."""
+    lead = z.shape[:-1]
+    zf = z.detach().reshape(-1, z.shape[-1])
+    if codebook.shape[-1] != zf.shape[-1]:
+        raise ValueError(f"nearest_euclidean: z is {tuple(z.shape)}, codebook {tuple(codebook.shape)}")
+    if _lib.use_kernel(zf):
+        codes = _nearest_euclidean_cuda(zf, codebook)
+    else:
+        codes = nearest_euclidean_reference(zf, codebook)
     return codes.reshape(lead)
 
 

@@ -1,9 +1,11 @@
 """The binding of ``csrc/same_conv.cu``: the codec's stride-1 bfloat16
-convolutions with SAME padding, the bias and an optional residual add, in
-one launch.  ``ops/conv.py`` chooses it for the convs in :func:`takes`
-(bfloat16, stride 1, one group, odd k <= 7, padding d (k - 1) / 2 <= 32,
-C_in and C_out multiples of 16), and holds its plain version and its
-gradient.  :func:`launch` sends a conv that :func:`gemm_path` admits (k 1,
+convolutions with SAME or causal padding, the bias and an optional residual
+add, in one launch.  ``ops/conv.py`` chooses it for the convs in
+:func:`takes` (bfloat16, stride 1, one group, odd k <= 7, d (k - 1) zeros
+padded as p on the left and the rest on the right, each halo rounded up to
+8 and the two at most 64: SAME's d (k - 1) / 2 <= 32 on each side, or
+Mimi's causal d (k - 1) <= 64 on the left; C_in and C_out multiples of
+16), and holds its plain version and its gradient.  :func:`launch` sends a conv that :func:`gemm_path` admits (k 1,
 T a multiple of 8, x, the residual and the output 16-byte aligned) to the
 file's k = 1 GEMM kernel (counted as ``launches.k1conv``), every other
 one to its stencil kernel (``launches.same_conv``).
@@ -19,22 +21,29 @@ from . import _lib
 
 _KERNEL = _lib.register(_lib.CudaKernel(
     "same_conv", "nawc_same_conv",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 ))
 _K1 = _lib.register(_lib.CudaKernel(
     "k1conv", "nawc_k1conv",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 ))
 _NULL = ctypes.c_void_p(None)
-MAX_K, MAX_PAD = 7, 32  # the kernel's shared-memory tile holds these taps and halo
+MAX_K, MAX_PAD = 7, 32  # the kernel's shared-memory tile holds these taps and 2 MAX_PAD of halo
+
+
+def _halos_fit(left: int, right: int) -> bool:
+    return -(-left // 8) * 8 + -(-right // 8) * 8 <= 2 * MAX_PAD
 
 
 def takes(x: torch.Tensor, c_in: int, c_out: int, k: int, stride: int, dilation: int,
-          groups: int) -> bool:
-    """Whether the kernel computes a conv of these settings on `x`."""
+          groups: int, pads: tuple[int, int]) -> bool:
+    """Whether the kernel computes a conv of these settings on `x`, padded
+    by `pads` (left, right) zeros, which must keep T."""
+    span = dilation * (k - 1)
+    left, right = pads
     return (x.dtype == torch.bfloat16 and stride == 1 and groups == 1 and k % 2 == 1
-            and k <= MAX_K and dilation * (k - 1) // 2 <= MAX_PAD and c_in % 16 == 0
-            and c_out % 16 == 0)
+            and k <= MAX_K and left >= 0 and right >= 0 and left + right == span
+            and _halos_fit(left, right) and c_in % 16 == 0 and c_out % 16 == 0)
 
 
 def gemm_path(x: torch.Tensor, residual: torch.Tensor | None, out: torch.Tensor, k: int) -> bool:
@@ -61,7 +70,7 @@ def _tables(weight: torch.Tensor, bias: torch.Tensor | None) -> tuple[torch.Tens
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None,
-           dilation: int) -> None:
+           dilation: int, left: int) -> None:
     c_out, c_in, k = weight.shape
     if x.dtype != torch.bfloat16 or not x.is_cuda:
         raise ValueError(f"same_conv: expected a bfloat16 CUDA tensor, got {x.dtype} on {x.device}")
@@ -70,9 +79,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: 
                          f"{None if bias is None else bias.device}, x on {x.device}")
     if x.dim() != 3 or x.shape[1] != c_in:
         raise ValueError(f"same_conv: x {tuple(x.shape)} for a weight of {c_in} input channels")
-    if not takes(x, c_in, c_out, k, 1, dilation, 1):
+    if not takes(x, c_in, c_out, k, 1, dilation, 1, (left, dilation * (k - 1) - left)):
         raise ValueError(f"same_conv: the kernel does not take C_in {c_in}, C_out {c_out}, k {k}, "
-                         f"dilation {dilation}")
+                         f"dilation {dilation}, left pad {left}")
     if residual is not None and (residual.shape != (x.shape[0], c_out, x.shape[2])
                                  or residual.dtype != x.dtype or residual.device != x.device):
         raise ValueError(f"same_conv: residual {tuple(residual.shape)} {residual.dtype} for an output "
@@ -80,16 +89,17 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: 
 
 
 def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-           residual: torch.Tensor | None, dilation: int) -> torch.Tensor:
+           residual: torch.Tensor | None, dilation: int, left: int) -> torch.Tensor:
     """The kernel's conv of a (B, C_in, T) bfloat16 CUDA tensor with the
-    (C_out, C_in, k) weight and (C_out,) bias (or none), plus `residual`
-    (B, C_out, T) where given, in one launch (x and the residual made
-    contiguous; the weights laid out once per weight version); raises
-    outside :func:`takes`."""
+    (C_out, C_in, k) weight and (C_out,) bias (or none), padded by `left`
+    zeros on the left and d (k - 1) - `left` on the right (SAME:
+    d (k - 1) / 2), plus `residual` (B, C_out, T) where given, in one launch
+    (x and the residual made contiguous; the weights laid out once per
+    weight version); raises outside :func:`takes`."""
     x = x.contiguous()
     residual = None if residual is None else residual.contiguous()
-    _check(x, weight, bias, residual, dilation)
     c_out, c_in, k = weight.shape
+    _check(x, weight, bias, residual, dilation, left)
     b, _, t = x.shape
     out = torch.empty((b, c_out, t), dtype=x.dtype, device=x.device)
     if out.numel():
@@ -100,7 +110,7 @@ def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
             if gemm_path(x, residual, out, k):
                 _K1(*ptrs, b, c_in, c_out, t, _lib.stream(x))
             else:
-                _KERNEL(*ptrs, b, c_in, c_out, t, k, dilation, _lib.stream(x))
+                _KERNEL(*ptrs, b, c_in, c_out, t, k, dilation, left, _lib.stream(x))
     return out
 
 

@@ -1,13 +1,14 @@
 """Device time of each convolution layer of the codec, kernel by kernel.
 
-    python3 -m nawc_tpu_torch.tools.conv_layers [--codec codec24k|snac44k] [--dtype bfloat16]
-                                                [--out layers.json]
+    python3 -m nawc_tpu_torch.tools.conv_layers [--codec codec24k|snac44k|mimi]
+                                                [--dtype bfloat16] [--out layers.json]
 
 Builds the codec (``codec24k``: ``CodecConfig()``'s widths; ``snac44k``:
-``CodecConfig.snac_44khz()``) in the given compute type on the card (random
-weights: the kernels cuDNN picks depend on shapes alone, ``cudnn.benchmark``
-off), runs one encode and decode of a 16 x 4 s batch at the benchmark's
-padded length (98,304 samples at 24 kHz, 184,320 at 44.1 kHz), keeps each
+``CodecConfig.snac_44khz()``; ``mimi``: ``CodecConfig.mimi()``) in the
+given compute type on the card (random weights: the kernels cuDNN picks
+depend on shapes alone, ``cudnn.benchmark`` off), runs one encode and
+decode of a batch of 16 clips at the benchmark's padded length (98,304
+samples at 24 kHz, 184,320 at 44.1 kHz: 4 s; Mimi's 720,000: 30 s), keeps each
 convolution module's inputs, and then profiles each module alone on them
 (``torch.profiler``, 3 calls after a warm one): its pads, casts, convolution
 and bias kernels.  Where a ``ResidualUnit`` adds ``x + y`` outside its
@@ -31,14 +32,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ..codec.api import MODELS
 from ..codec.layers import ResidualUnit, SameConv1d, SameConvTranspose1d
-from ..codec.model import SnacCodec
+from ..codec.mimi import CausalConvTranspose1d
 from ..ops import dwconv, same_conv
 from ..utils.config import CodecConfig
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
-CODECS = {"codec24k": (CodecConfig, 98_304), "snac44k": (CodecConfig.snac_44khz, 184_320)}
+CODECS = {"codec24k": (CodecConfig, 98_304), "snac44k": (CodecConfig.snac_44khz, 184_320),
+          "mimi": (CodecConfig.mimi, 720_000)}
 
 
 def stride1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) -> list[tuple]:
@@ -70,15 +73,40 @@ def k1_geometries(cfg: CodecConfig = CodecConfig(), samples: int = 98_304) -> li
     the meta device: each ResidualUnit's Conv_1 (with the unit's residual)
     and, in SNAC's layout, the decoder's head conv and each noise block's
     conv (no bias, no residual): 24 at ``CodecConfig()``, 29 at
-    ``snac_44khz()``."""
+    ``snac_44khz()``; Mimi's residual blocks' Conv_1: 8 at ``mimi()``."""
     with torch.device("meta"):
-        model = SnacCodec(cfg).eval()
+        model = MODELS[cfg.layout].module(cfg).eval()
     out = []
     for m in model.modules():
         if isinstance(m, SameConv1d) and m.kernel_size[0] == m.stride[0] == m.groups == 1:
             m.register_forward_hook(lambda mod, args, kwargs, y: out.append(
                 (mod.in_channels, mod.out_channels, kwargs.get("residual") is not None, mod.bias is not None,
                  args[0].shape[-1])), with_kwargs=True)
+    with torch.no_grad():
+        model.decoder(model.encoder(torch.zeros(1, samples, device="meta")))
+    return out
+
+
+def causal_geometries(cfg: CodecConfig = CodecConfig.mimi(), samples: int = 720_000) -> list[tuple]:
+    """(C_in, C_out, k, dilation, left pad, T) of the stride-1 one-group
+    convs with k > 1 of one encode and decode of `samples` samples in
+    Mimi's layout, which ``ops.same_conv`` takes in bfloat16 at their causal
+    padding (d (k - 1) zeros on the left), in the codec's order, read by
+    forward hooks from a shape pass on the meta device: each residual
+    block's Conv_0 (k 3), the encoder's Conv_1 (k 3) and the decoder's
+    Conv_0 (k 7): 10 at ``mimi()``."""
+    with torch.device("meta"):
+        model = MODELS[cfg.layout].module(cfg).eval()
+    out = []
+    x = torch.zeros(1, 16, 8, dtype=torch.bfloat16)
+    for m in model.modules():
+        if not isinstance(m, SameConv1d) or m.kernel_size[0] == 1:
+            continue
+        if same_conv.takes(x, m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0], m.dilation[0],
+                           m.groups, m.pads(8)):
+            m.register_forward_hook(lambda mod, args, y: out.append(
+                (mod.in_channels, mod.out_channels, mod.kernel_size[0], mod.dilation[0],
+                 mod.pads(args[0].shape[-1])[0], args[0].shape[-1])))
     with torch.no_grad():
         model.decoder(model.encoder(torch.zeros(1, samples, device="meta")))
     return out
@@ -108,8 +136,10 @@ def _kind(path: str, mod, args, kwargs) -> str:
     x = args[0]
     k, s, d = mod.kernel_size[0], mod.stride[0], mod.dilation[0]
     c_in, c_out = mod.in_channels, mod.out_channels
-    if isinstance(mod, SameConvTranspose1d):
-        return f"ConvTranspose {c_in}->{c_out} s{s}"
+    if isinstance(mod, (SameConvTranspose1d, CausalConvTranspose1d)):
+        return f"ConvTranspose {c_in}->{c_out} s{s}" + (f" groups {mod.groups}" if mod.groups > 1 else "")
+    if ".Res.Conv_" in path:  # Mimi's residual blocks, causal
+        return f"Res {path[-6:]} {c_in}->{c_out} k{k}" + (" +res" if kwargs.get("residual") is not None else "")
     if mod.groups > 1 and mod.groups == c_in == c_out:
         return f"depthwise {c_in} k{k} d{d} T {x.shape[-1]}"
     if ".ResidualUnit_" in path and path.endswith("Conv_0"):
@@ -141,12 +171,12 @@ def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dic
     dev = torch.device("cuda")
     make, samples = CODECS[codec]
     cfg = make(compute_dtype=dtype)
-    model = SnacCodec(cfg).to(dev).eval()
+    model = MODELS[cfg.layout].module(cfg).to(dev).eval()
     captured: list[tuple[str, torch.nn.Module, tuple, dict]] = []
     adds: list[tuple[str, torch.Tensor, torch.Tensor]] = []
     hooks = []
     for path, mod in model.named_modules():
-        if isinstance(mod, (SameConv1d, SameConvTranspose1d)):
+        if isinstance(mod, (SameConv1d, SameConvTranspose1d, CausalConvTranspose1d)):
             hooks.append(mod.register_forward_pre_hook(
                 lambda m, a, kw, _p=path: captured.append((_p, m, a, dict(kw))), with_kwargs=True))
         elif isinstance(mod, ResidualUnit):
@@ -213,7 +243,7 @@ def main(argv=None) -> int:
         count[r["kind"]] += 1
         for k, v in r["kernels"].items():
             by_kind[r["kind"]][family(k)] += v
-    print(f"{torch.cuda.get_device_name(0)}, {args.codec} {args.dtype}: device ms per 16 x 4 s call "
+    print(f"{torch.cuda.get_device_name(0)}, {args.codec} {args.dtype}: device ms per call of 16 clips "
           "by layer kind")
     total = defaultdict(float)
     for kind in sorted(by_kind, key=lambda k: -sum(by_kind[k].values())):

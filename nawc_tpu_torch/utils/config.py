@@ -62,15 +62,45 @@ class CodecConfig:
     depthwise: bool = False  # SNAC's depthwise-separable residual units (groups = channels)
     attn_window: int = 0  # LocalMHA's window in frames; 0: no attention ("snac" layout only)
     noise_blocks: bool = False  # SNAC's NoiseBlock after each decoder upsampling
+    # Mimi's layout ("mimi", ``codec/mimi.py``): a causal SEANet with ELU (encoder_dim its
+    # num_filters, latent_dim its hidden size, decoder_dim its widest channels), a transformer
+    # of `tfm_layers` pre-norm layers (`tfm_heads` heads of latent_dim / tfm_heads, an MLP of
+    # `tfm_ffn`, RoPE, a causal window of `tfm_context` frames) after the encoder and before
+    # the decoder, a learnt resampler by `resample_stride`, and a split RVQ: `semantic_levels`
+    # levels and the acoustic ones, all fed the latent, every level Euclidean at stride 1;
+    # `n_q` of the len(vq_strides) levels held are used (0: all)
+    tfm_layers: int = 0
+    tfm_heads: int = 0
+    tfm_ffn: int = 0
+    tfm_context: int = 0
+    resample_stride: int = 1
+    semantic_levels: int = 0
+    n_q: int = 0
 
     def __post_init__(self):
-        if self.layout not in ("nawc", "snac"):
-            raise ValueError(f"CodecConfig: layout {self.layout!r} is neither 'nawc' nor 'snac'")
-        if self.layout == "nawc" and self.attn_window:
-            raise ValueError("CodecConfig: attention runs in the 'snac' layout only")
+        if self.layout not in ("nawc", "snac", "mimi"):
+            raise ValueError(f"CodecConfig: layout {self.layout!r} is none of 'nawc', 'snac', 'mimi'")
+        if self.layout != "snac" and self.attn_window:
+            raise ValueError("CodecConfig: windowed attention runs in the 'snac' layout only")
         if self.layout == "snac" and self.latent_dim != self.encoder_dim * 2 ** len(self.encoder_rates):
             raise ValueError(f"CodecConfig: SNAC's latent_dim is encoder_dim * 2^{len(self.encoder_rates)}"
                              f" = {self.encoder_dim * 2 ** len(self.encoder_rates)}, got {self.latent_dim}")
+        mimi = (self.tfm_layers, self.tfm_heads, self.tfm_ffn, self.tfm_context, self.resample_stride - 1,
+                self.semantic_levels)
+        if self.layout != "mimi" and any(mimi):
+            raise ValueError("CodecConfig: the transformers, resampler and split RVQ are the 'mimi' layout's")
+        if self.layout == "mimi":
+            widest = self.encoder_dim * 2 ** len(self.encoder_rates)
+            if self.decoder_dim != widest or tuple(self.decoder_rates) != tuple(self.encoder_rates[::-1]):
+                raise ValueError(f"CodecConfig: Mimi's decoder mirrors its encoder: decoder_dim {widest}, "
+                                 f"decoder_rates {tuple(self.encoder_rates[::-1])}")
+            if not self.tfm_heads or self.latent_dim % self.tfm_heads:
+                raise ValueError(f"CodecConfig: {self.latent_dim} channels are not {self.tfm_heads} heads")
+            if set(self.vq_strides) != {1} or not 0 < self.semantic_levels < len(self.vq_strides):
+                raise ValueError("CodecConfig: Mimi's levels run at stride 1, a semantic one first")
+        if not self.semantic_levels <= self.n_q <= len(self.vq_strides) and self.n_q:
+            raise ValueError(f"CodecConfig: n_q {self.n_q} outside [{self.semantic_levels}, "
+                             f"{len(self.vq_strides)}]")
 
     @classmethod
     def snac_44khz(cls, **overrides) -> "CodecConfig":
@@ -81,6 +111,18 @@ class CodecConfig:
             decoder_dim=1536, decoder_rates=(8, 8, 3, 2), codebook_size=4096, codebook_dim=8,
             vq_strides=(8, 4, 2, 1), layout="snac", depthwise=True, attn_window=32,
             noise_blocks=True), **overrides})
+
+    @classmethod
+    def mimi(cls, **overrides) -> "CodecConfig":
+        """kyutai/mimi's published config (its ``config.json``; the speech
+        tokenizer of Moshi): 24 kHz, a 25 Hz SEANet resampled to 12.5 Hz,
+        two 8-layer transformers, 32 codebooks of 2048 x 256 held (one
+        semantic), 8 used as Moshi decodes them; 96,085,825 parameters."""
+        return cls(**{**dict(
+            sample_rate=24_000, encoder_dim=64, encoder_rates=(4, 5, 6, 8), latent_dim=512,
+            decoder_dim=1024, decoder_rates=(8, 6, 5, 4), codebook_size=2048, codebook_dim=256,
+            vq_strides=(1,) * 32, layout="mimi", tfm_layers=8, tfm_heads=8, tfm_ffn=2048,
+            tfm_context=250, resample_stride=2, semantic_levels=1, n_q=8), **overrides})
 
     @property
     def compute_torch_dtype(self) -> torch.dtype:
@@ -98,14 +140,18 @@ class CodecConfig:
     def chunk(self) -> int:
         """Pad-to multiple in samples: ``hop * max(vq_strides)``, with the
         reference's 4096 as a floor; in the "snac" layout SNAC's
-        ``preprocess`` rule, ``hop * lcm(vq_strides[0], attn_window)``."""
+        ``preprocess`` rule, ``hop * lcm(vq_strides[0], attn_window)``; in
+        the "mimi" layout one frame, ``hop * resample_stride``."""
         if self.layout == "snac":
             return self.hop * math.lcm(self.vq_strides[0], self.attn_window or 1)
+        if self.layout == "mimi":
+            return self.hop * self.resample_stride
         return max(4096, self.hop * max(self.vq_strides))
 
     @property
     def num_levels(self) -> int:
-        return len(self.vq_strides)
+        """The levels the codec uses: ``n_q`` where set, else all held."""
+        return self.n_q or len(self.vq_strides)
 
 
 @dataclasses.dataclass(frozen=True)

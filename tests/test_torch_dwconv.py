@@ -156,20 +156,20 @@ def test_function_gradient_is_autograd_of_the_plain_path(c, k, d, with_bias):
 
 def test_takes_names_the_kernel_domain():
     x = torch.zeros(1, 16, 4, dtype=torch.bfloat16)
-    assert dw.takes(x, 64, 64, 7, 1, 9, 64)
-    assert dw.takes(x, 96, 96, 7, 1, 3, 96)
-    assert dw.takes(x, 5, 5, 7, 1, 1, 5)         # any channel count
-    assert not dw.takes(x, 96, 96, 3, 1, 32, 96)  # k 3
-    assert not dw.takes(x, 5, 5, 1, 1, 1, 5)      # k 1
-    assert not dw.takes(x, 64, 64, 7, 1, 2, 64)   # dilation 2
-    assert not dw.takes(x, 64, 64, 7, 1, 11, 64)  # dilation 11
-    assert not dw.takes(x, 64, 64, 9, 1, 1, 64)   # k > 7
-    assert not dw.takes(x, 64, 64, 6, 1, 1, 64)   # even k
-    assert not dw.takes(x, 64, 64, 7, 2, 1, 64)   # stride 2
-    assert not dw.takes(x, 64, 64, 7, 1, 1, 1)    # one group
-    assert not dw.takes(x, 64, 64, 7, 1, 1, 2)    # two groups
-    assert not dw.takes(x, 64, 128, 7, 1, 1, 64)  # a channel multiplier
-    assert not dw.takes(x.float(), 64, 64, 7, 1, 1, 64)
+    assert dw.takes(x, 64, 64, 7, 1, 9, 64, (27, 27))
+    assert dw.takes(x, 96, 96, 7, 1, 3, 96, (9, 9))
+    assert dw.takes(x, 5, 5, 7, 1, 1, 5, (3, 3))         # any channel count
+    assert not dw.takes(x, 96, 96, 3, 1, 32, 96, (32, 32))  # k 3
+    assert not dw.takes(x, 5, 5, 1, 1, 1, 5, (0, 0))      # k 1
+    assert not dw.takes(x, 64, 64, 7, 1, 2, 64, (6, 6))   # dilation 2
+    assert not dw.takes(x, 64, 64, 7, 1, 11, 64, (33, 33))  # dilation 11
+    assert not dw.takes(x, 64, 64, 9, 1, 1, 64, (4, 4))   # k > 7
+    assert not dw.takes(x, 64, 64, 6, 1, 1, 64, (2, 3))   # even k
+    assert not dw.takes(x, 64, 64, 7, 2, 1, 64, (3, 3))   # stride 2
+    assert not dw.takes(x, 64, 64, 7, 1, 1, 1, (3, 3))    # one group
+    assert not dw.takes(x, 64, 64, 7, 1, 1, 2, (3, 3))    # two groups
+    assert not dw.takes(x, 64, 128, 7, 1, 1, 64, (3, 3))  # a channel multiplier
+    assert not dw.takes(x.float(), 64, 64, 7, 1, 1, 64, (3, 3))
 
 
 def test_bound_bytes_are_the_benchmark_counts():

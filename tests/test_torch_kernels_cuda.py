@@ -563,17 +563,17 @@ def _same_conv_ops():
     return sc
 
 
-def _sc_op(x, w, bias, d, res=None):
-    """The conv op at a conv in the stride-1 kernel's domain: on the card
-    the kernel."""
+def _sc_op(x, w, bias, d, res=None, pads=None):
+    """The conv op at a conv in the stride-1 kernel's domain, padded by
+    `pads` (left, right) or SAME's: on the card the kernel."""
     p = d * (w.shape[-1] - 1) // 2
-    return conv1d(x, w, bias, 1, lambda t: (p, p), d, 1, res)
+    return conv1d(x, w, bias, 1, lambda t: pads or (p, p), d, 1, res)
 
 
-def _sc_plain(x, w, bias, d, res=None):
+def _sc_plain(x, w, bias, d, res=None, pads=None):
     """The op's plain version, on the card."""
     with _lib.plain_versions():
-        return _sc_op(x, w, bias, d, res)
+        return _sc_op(x, w, bias, d, res, pads)
 
 
 def _sc_case(c_in, c_out, k, b, t, dev, seed, offset=0):
@@ -589,7 +589,7 @@ def _sc_case(c_in, c_out, k, b, t, dev, seed, offset=0):
     return x, w, bias, rbuf[offset:].view(b, c_out, t)
 
 
-def _sc_check(got, x, w, bias, d, res) -> float:
+def _sc_check(got, x, w, bias, d, res, pads=None) -> float:
     """The kernel's output `got` against the plain version.  With acc the
     float32 sum of the K = C_in k products and E = K 2^-22 sum |products|
     (twice the worst-case error of a float32 sum of K terms, in any order,
@@ -599,25 +599,26 @@ def _sc_check(got, x, w, bias, d, res) -> float:
     to that convolution; and `got` lies within two ulps of the largest of
     |acc|, |y| and |out| (y the conv with its bias) plus E of the plain
     version, the two adds after a flip of RN(acc) adding one more at ties.
-    -> the largest |got - plain| in those ulps, E left out."""
+    -> the largest |got - plain| in those ulps, E left out.  `pads`:
+    (left, right), SAME's where None."""
     k = w.shape[-1]
     p = d * (k - 1) // 2
-    xp, wb = torch.nn.functional.pad(x, (p, p)).float(), w.to(torch.bfloat16).float()
+    xp, wb = torch.nn.functional.pad(x, pads or (p, p)).float(), w.to(torch.bfloat16).float()
     acc = torch.nn.functional.conv1d(xp, wb, None, 1, 0, d)
     err = torch.nn.functional.conv1d(xp.abs(), wb.abs(), None, 1, 0, d) * (x.shape[1] * k * 2.0**-22)
 
     def ulp(v):
         return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
 
-    conv = _sc_op(x, w, torch.zeros_like(bias), d)
+    conv = _sc_op(x, w, torch.zeros_like(bias), d, pads=pads)
     rounded = acc.to(torch.bfloat16)
     off = (conv.float() - rounded.float()).abs()
     bar = ulp(torch.maximum(acc.abs(), rounded.float().abs())) + err
     assert bool((off <= bar).all()), f"the convolution is off RN(acc) by {float((off - bar).max())} past its bar"
     y_k = conv + bias.to(torch.bfloat16)[:, None]
     assert torch.equal(got, y_k if res is None else res + y_k)
-    want = _sc_plain(x, w, bias, d, res)
-    y = _sc_plain(x, w, bias, d) if res is not None else want
+    want = _sc_plain(x, w, bias, d, res, pads)
+    y = _sc_plain(x, w, bias, d, pads=pads) if res is not None else want
     u = ulp(torch.maximum(torch.maximum(acc.abs(), y.float().abs()), want.float().abs()))
     off = (got.float() - want.float()).abs()
     assert bool((off <= 2 * u + err).all())
@@ -674,7 +675,7 @@ def test_same_conv_refuses_what_it_does_not_take(dev):
     bad = [(x.float(), w, 1), (x, w[..., :6], 1), (x[:, :40], w[:, :40], 1), (x, w[:40], 1), (x, w, 11)]
     for xi, wi, d in bad:
         with pytest.raises(ValueError):
-            sc.launch(xi, wi, bias[: wi.shape[0]], None, d)
+            sc.launch(xi, wi, bias[: wi.shape[0]], None, d, d * (wi.shape[-1] - 1) // 2)
     assert sc._KERNEL.launches + sc._K1.launches == n
 
 
@@ -865,7 +866,7 @@ def test_dwconv_refuses_what_it_does_not_take(dev):
            (x, w[..., :5], 1), (x, w, 11), (x, w, 2), (x, w2, 1), (x[:, :40], w, 1)]
     for xi, wi, d in bad:
         with pytest.raises(ValueError):
-            dw.launch(xi, wi, bias, None, d)
+            dw.launch(xi, wi, bias, None, d, d * (wi.shape[-1] - 1) // 2)
     assert dw._KERNEL.launches == n
 
 

@@ -23,7 +23,8 @@ from nawc_tpu_torch.codec.model import SnacCodec
 from nawc_tpu_torch.ops import _lib, dwconv
 from nawc_tpu_torch.ops import conv as conv_op
 from nawc_tpu_torch.ops import same_conv as sc
-from nawc_tpu_torch.tools.conv_layers import k1_geometries
+from nawc_tpu_torch.codec import mimi
+from nawc_tpu_torch.tools.conv_layers import causal_geometries, k1_geometries
 from nawc_tpu_torch.utils import profiling
 from nawc_tpu_torch.utils.config import CodecConfig
 
@@ -202,11 +203,98 @@ def test_conv1d_takes_the_route_of_its_table(monkeypatch, where, kernel, grad, r
 
 def test_takes_names_the_kernel_domain():
     x = torch.zeros(1, 16, 4, dtype=torch.bfloat16)
-    assert sc.takes(x, 48, 48, 7, 1, 9, 1)
-    assert not sc.takes(x, 48, 48, 7, 1, 11, 1)   # padding 33 > 32
-    assert not sc.takes(x, 48, 48, 9, 1, 1, 1)    # k > 7
-    assert not sc.takes(x.float(), 48, 48, 7, 1, 1, 1)
-    assert not sc.takes(x, 40, 48, 7, 1, 1, 1)
+    assert sc.takes(x, 48, 48, 7, 1, 9, 1, (27, 27))
+    assert not sc.takes(x, 48, 48, 7, 1, 11, 1, (33, 33))   # padding 33 > 32
+    assert not sc.takes(x, 48, 48, 9, 1, 1, 1, (4, 4))      # k > 7
+    assert not sc.takes(x.float(), 48, 48, 7, 1, 1, 1, (3, 3))
+    assert not sc.takes(x, 40, 48, 7, 1, 1, 1, (3, 3))
+
+
+# ---------------------------------------------------------------- causal padding (Mimi)
+
+def _causal(k, d):
+    """Causal padding at stride 1 as a function of T: d (k - 1) zeros on the left."""
+    return lambda t: (d * (k - 1), 0)
+
+
+@pytest.mark.parametrize("c_in,c_out,k,d,residual", [(64, 32, 3, 1, False), (512, 1024, 7, 1, False),
+                                                     (48, 48, 7, 9, True), (32, 64, 1, 1, True)])
+def test_causal_conv_is_the_left_padded_arithmetic_bit_for_bit(c_in, c_out, k, d, residual):
+    """``conv1d`` at a causal padding and Mimi's ``CausalConv1d`` on the
+    CPU: F.pad by d (k - 1) on the left, then the arithmetic of ``_want``."""
+    x, w, bias, res = _case(c_in, c_out, k, 2, 37, seed=c_out + k)
+    res = res if residual else None
+    want = _want(x, w, bias, 1, (d * (k - 1), 0), d, 1, res)
+    assert torch.equal(conv_op.conv1d(x, w, bias, 1, _causal(k, d), d, 1, res), want)
+    conv = mimi.CausalConv1d(c_in, c_out, k, dilation=d)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.bias.copy_(bias)
+        assert torch.equal(conv(x, residual=res), want)
+    # and not the SAME conv
+    assert not torch.equal(want, _want(x, w, bias, 1, (d * (k - 1) // 2,) * 2, d, 1, res)) or k == 1
+
+
+@pytest.mark.parametrize("k,d,left", [(3, 1, 2), (7, 1, 6), (7, 9, 54)])
+def test_causal_conv_hands_the_stencil_its_left_pad(stubbed_card, k, d, left):
+    """On the card's route (the C entries stubbed) a causal conv reaches the
+    stencil kernel with its left pad, and no padded copy is made."""
+    x, w, bias, _ = _case(48, 64, k, 2, 64, seed=k)
+    pads = []
+    real_pad = F.pad
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(F, "pad", lambda *a, **kw: pads.append(a) or real_pad(*a, **kw))
+        y = conv_op.conv1d(x, w, bias, 1, _causal(k, d), d, 1)
+    assert y.shape == (2, 64, 64) and not pads
+    entry, args = stubbed_card[0]
+    assert entry == "same_conv" and args[9:12] == (k, d, left)
+
+
+@pytest.mark.parametrize("c_in,c_out,k,d,residual", [(16, 32, 3, 1, False), (32, 16, 7, 3, True)])
+def test_function_gradient_at_causal_padding_is_autograd_of_the_plain_path(c_in, c_out, k, d, residual):
+    """The autograd Function's backward at a causal padding (the backward of
+    the conv of the left-padded x, cut to x) against autograd of pad + conv
+    + add, in float64, on the CPU where its forward is the plain version."""
+    x, w, bias, res = _case(c_in, c_out, k, 2, 23, seed=11, dtype=torch.float64)
+    w, bias = w.double(), bias.double()
+    res = res if residual else None
+    g = torch.randn(2, c_out, 23, dtype=torch.float64)
+    extra = [res.clone().requires_grad_()] if residual else []
+    leaves = [t.clone().requires_grad_() for t in (x, w, bias)] + extra
+    out = conv_op._KernelConv.apply(leaves[0], leaves[1], leaves[2], leaves[3] if residual else None, sc,
+                                    _causal(k, d), d, 1)
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_() for t in (x, w, bias)] + ([res.clone().requires_grad_()] if residual else [])
+    want = torch.autograd.grad(_want(plain[0], plain[1], plain[2], 1, (d * (k - 1), 0), d, 1,
+                                     plain[3] if residual else None), plain, g)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+def test_takes_admits_a_padding_that_keeps_t_within_the_halo():
+    x = torch.zeros(1, 16, 4, dtype=torch.bfloat16)
+    assert sc.takes(x, 64, 32, 3, 1, 1, 1, (2, 0)) and sc.takes(x, 512, 1024, 7, 1, 1, 1, (6, 0))
+    assert sc.takes(x, 48, 48, 5, 1, 16, 1, (64, 0))          # the widest causal pad: 64
+    assert not sc.takes(x, 48, 48, 7, 1, 11, 1, (66, 0))      # 72 rows of halo
+    assert sc.takes(x, 48, 48, 7, 1, 10, 1, (30, 30))
+    assert not sc.takes(x, 48, 48, 7, 1, 10, 1, (34, 26))     # 40 + 32 rows of halo
+    assert not sc.takes(x, 48, 48, 7, 1, 1, 1, (6, 6))        # T would grow
+    assert not sc.takes(x, 48, 48, 7, 1, 1, 1, (-1, 7))
+    assert not dwconv.takes(x, 64, 64, 7, 1, 1, 64, (6, 0))   # the depthwise kernel pads SAME only
+    assert dwconv.takes(x, 64, 64, 7, 1, 1, 64, (3, 3))
+
+
+def test_mimis_geometries_are_its_stride1_convs():
+    """``causal_geometries`` and ``k1_geometries`` at ``CodecConfig.mimi()``:
+    the 10 causal k3/k7 convs the stencil takes and the 8 residual k 1
+    convs, and their left pads."""
+    causal = causal_geometries()
+    assert len(causal) == 10 and {g[4] for g in causal} == {2, 6} and all(g[3] == 1 for g in causal)
+    assert sorted({g[:2] for g in causal}) == [(64, 32), (128, 64), (256, 128), (512, 256), (512, 1024),
+                                               (1024, 512)]
+    k1 = k1_geometries(CodecConfig.mimi(), 720_000)
+    assert len(k1) == 8 and all(r and b and t % 8 == 0 for _, _, r, b, t in k1)
 
 
 # ---------------------------------------------------------------- the k = 1 GEMM path
@@ -259,7 +347,8 @@ def test_launch_takes_the_gemm_path_by_shape_and_counts_both(stubbed_card, case,
     assert y.shape == (2, 64, t) and y.dtype == torch.bfloat16
     entry, args = stubbed_card[0]
     assert [c[0] for c in stubbed_card] == ["k1conv" if gemm else "same_conv"]
-    assert args[5:9] == (2, 48, 64, t) and len(args) == (10 if gemm else 12)
+    assert args[5:9] == (2, 48, 64, t) and len(args) == (10 if gemm else 13)
+    assert gemm or args[9:12] == (k, 1, (k - 1) // 2)  # k, dilation, SAME's left pad
     assert (args[3].value is None) == (res is None)
     assert {n: profiling.total(f"launches.{n}") - before[n] for n in before} == {"same_conv": int(not gemm),
                                                                                  "k1conv": int(gemm)}
@@ -423,3 +512,64 @@ def test_k1_conv_off_tmas_rows_runs_on_the_stencil_kernel(dev, t, offset):
     torch.cuda.synchronize()
     assert (sc._K1.launches - n1, sc._KERNEL.launches - n) == (0, 1)
     check(got, x, w, bias, 1, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,k,d,left,t", sorted(set(causal_geometries())))
+def test_causal_stencil_is_the_plain_version_at_every_mimi_geometry(dev, c_in, c_out, k, d, left, t):
+    """Each of Mimi's 10 causal k3/k7 convs (6 geometries) at its own T on
+    two clips, one stencil launch, held to the plain version by the stencil
+    kernel's bar at the causal padding; bit for bit on a second call."""
+    case, check = _card_helpers()
+    x, w, bias, _ = case(c_in, c_out, k, 2, t, dev, seed=c_in + k + t)
+    n, n1 = sc._KERNEL.launches, sc._K1.launches
+    got = conv_op.conv1d(x, w, bias, 1, _causal(k, d), d, 1)
+    again = conv_op.conv1d(x, w, bias, 1, _causal(k, d), d, 1)
+    torch.cuda.synchronize()
+    assert (sc._KERNEL.launches - n, sc._K1.launches - n1) == (2, 0)
+    assert got.shape == (2, c_out, t) and torch.equal(got, again)
+    check(got, x, w, bias, d, None, pads=(left, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,residual,bias,t", sorted(set(k1_geometries(CodecConfig.mimi(), 720_000))))
+def test_k1_path_at_mimis_residual_convs(dev, c_in, c_out, residual, bias, t):
+    """Mimi's 8 residual k 1 convs (4 geometries) on the GEMM path."""
+    _k1_on_card(dev, c_in, c_out, residual, bias, 2, t, seed=c_out + t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,pads", [(3, 1, (2, 0)), (7, 1, (6, 0)), (7, 9, (54, 0)), (5, 16, (64, 0)),
+                                      (3, 8, (10, 6))])
+def test_stencil_at_a_left_pad_off_same(dev, k, d, pads):
+    """The stencil at pads other than SAME's, up to the widest halo, on a
+    ragged T read from a misaligned address."""
+    case, check = _card_helpers()
+    x, w, bias, res = case(48, 96, k, 3, 301, dev, seed=k + d, offset=1)
+    assert sc.takes(x, 48, 96, k, 1, d, 1, pads)
+    got = conv_op.conv1d(x, w, bias, 1, lambda t: pads, d, 1, res)
+    check(got, x, w, bias, d, res, pads=pads)
+
+
+@pytest.mark.cuda
+def test_causal_gradient_on_the_card_against_plain_autograd(dev):
+    """x, weight, bias and residual gradients of a causal k3 conv through the
+    kernel's Function against autograd of the plain version, within one
+    bfloat16 ulp of the largest of each."""
+    case, _ = _card_helpers()
+    x, w, bias, res = case(64, 32, 3, 2, 333, dev, seed=9)
+    g = torch.randn(2, 32, 333, device=dev).to(torch.bfloat16)
+
+    def grads(plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias, res)]
+        ctx = _lib.plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            out = conv_op.conv1d(leaves[0], leaves[1], leaves[2], 1, _causal(3, 1), 1, 1, leaves[3])
+        return torch.autograd.grad(out, leaves, g)
+
+    n = sc._KERNEL.launches
+    got = grads(False)
+    assert sc._KERNEL.launches == n + 1
+    for a, b in zip(got, grads(True)):
+        ulp = 2.0 ** (np.floor(np.log2(float(b.float().abs().max()))) - 7)
+        assert a.shape == b.shape and float((a.float() - b.float()).abs().max()) <= ulp

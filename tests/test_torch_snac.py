@@ -394,7 +394,7 @@ def test_layer_ablation_runs_on_the_snac_44khz_preset():
 def test_cli_codec_size_snac44k(capsys):
     from nawc_tpu_torch.cli.common import CODEC_SIZES, load_codec
 
-    assert CODEC_SIZES == ("full", "small", "snac44k")
+    assert CODEC_SIZES == ("full", "small", "snac44k", "mimi")
     codec = load_codec(None, "snac44k", device="cpu")
     assert codec.cfg == CodecConfig.snac_44khz()
     assert "RANDOM weights" in capsys.readouterr().out

@@ -23,7 +23,9 @@ CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / "codec_24k.msgpa
 
 
 PORT_ONLY = {"CodecConfig": [("layout", "nawc"), ("depthwise", False), ("attn_window", 0),
-                             ("noise_blocks", False)]}
+                             ("noise_blocks", False), ("tfm_layers", 0), ("tfm_heads", 0), ("tfm_ffn", 0),
+                             ("tfm_context", 0), ("resample_stride", 1), ("semantic_levels", 0),
+                             ("n_q", 0)]}
 
 
 @pytest.mark.parametrize("name", ["StftConfig", "CodecConfig", "SpreadSpectrumConfig",
@@ -32,7 +34,7 @@ def test_config_fields_and_defaults(name):
     jc, tc = getattr(jcfg, name)(), getattr(tcfg, name)()
     jf = [(f.name, f.default) for f in dataclasses.fields(jc)]
     tf = [(f.name, f.default) for f in dataclasses.fields(tc)]
-    # the port's own keys (SNAC's layout; the JAX package has none) follow JAX's, off by default
+    # the port's own keys (SNAC's and Mimi's layouts; the JAX package has none) follow JAX's, off by default
     own = PORT_ONLY.get(name, [])
     assert jf == tf[: len(tf) - len(own)] and tf[len(tf) - len(own):] == own
     for prop in ("n_bins", "hop", "chunk", "num_levels"):
