@@ -14,8 +14,8 @@ Phases, each printing its seconds:
    instantiation's SASS (by ``cuobjdump -sass``) no float64 conversion or
    arithmetic, and each Snake kernel's opcodes (the range checks, FCHK,
    and the calls among them) and SASS instructions per element are
-   printed; the stride-1 and the depthwise convolution kernels' functions
-   must have no stack frame and no spills;
+   printed; the stride-1, the depthwise and the output convolution
+   kernels' functions must have no stack frame and no spills;
 2. kernels: each op with a hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at odd shapes (codes
    by the near-tie rule of ``nawc_tpu_torch/ops/parity.py``; sswm also at
@@ -57,7 +57,13 @@ Phases, each printing its seconds:
    of its k 1 convs apart; and the depthwise convolution kernel
    (``csrc/dwconv.cu``) likewise at the 26 depthwise convolutions of one
    SNAC 44 kHz 16 x 4 s encode and decode, beside ATen's grouped bfloat16
-   ``F.conv1d``;
+   ``F.conv1d``; and the output convolution kernel (``csrc/outconv.cu``)
+   at the decoders' last conv of the four roundtrip cells (the float32
+   codec's, codec24k's, SNAC 44 kHz's and Mimi's, each one decode of its
+   16-clip batch): every output within a float32 summation bound of the
+   float64 sum, two runs bit for bit, its device ms beside the plain chain
+   it replaces (``x.float()``, ``F.pad``, cuDNN's float32 conv), cuDNN's
+   float32 ``F.conv1d`` with its cast and the byte bound;
 3. weights: ``checkpoints/codec_24k.msgpack`` read by the port's own reader,
    converted in memory and moved to the card;
 4. main path at full width: ``entry`` (embed -> codec round-trip -> detect)
@@ -88,7 +94,9 @@ Phases, each printing its seconds:
    agreement with the float32 codec per level (JAX's bar: above 0.94 on
    average), decode rel-rms against float32 (under 0.1), and the time per
    batch of embed + bf16 encode + detect beside phase 6's float32 figure;
-   the encode and decode launch the stride-1 convolution kernel 50 times;
+   the encode and decode launch the stride-1 convolution kernel 50 times,
+   and the float32 and the bfloat16 decode the output conv kernel once
+   each;
 10. codec-latent watermarks: ``run_combined`` of semantic_pca,
    semantic_cluster, semantic_random and token_green at 200 of their
    operating point's 300 Adam steps on 4 seeded speech-like clips of 2 s at 16 kHz,
@@ -174,14 +182,15 @@ Phases, each printing its seconds:
    (its configuration's codec block, weights drawn on the card by
    ``port_bench/weights_snac.py``) on 16 clips x 4 s at 44.1 kHz: one call,
    counted from zero after a warm call, must launch the depthwise kernel 26
-   times and the stride-1 kernel 29 times; its ms per call;
+   times, the stride-1 kernel 29 times and the output conv kernel once;
+   its ms per call;
 17. Mimi bf16 main path: ``entry(codec)``'s ``fn`` with the Mimi bfloat16
    codec that the benchmark cell ``mimi-roundtrip-bf16`` runs (its
    configuration's codec block, weights drawn on the card by
    ``port_bench/weights_mimi.py``) on 16 clips x 30 s at 24 kHz: one call,
    counted from zero after a warm call, must launch the stencil kernel 10
-   times (its causal k 3 / k 7 convs) and the k 1 GEMM path 8 times; its
-   ms per call.
+   times (its causal k 3 / k 7 convs), the k 1 GEMM path 8 times and the
+   output conv kernel once; its ms per call.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -267,7 +276,7 @@ F64_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "DMUL", "DADD", "DFMA")
 # sweep (phase 8), the Snake backward's the trainers (phase 13), the
 # stride-1 convolution's the bfloat16 codec (phase 9), the depthwise
 # convolution's the SNAC bfloat16 main path (phase 16)
-MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake")
+MAIN_KERNELS = ("whiten_correlate", "nearest_codebook", "rvq_encode_fused", "snake", "outconv")
 BF16_ONLY = ("same_conv", "k1conv", "dwconv")  # launched by bfloat16 codecs only (dwconv: SNAC's)
 LAUNCHES_ON = {"jaxrand": "sweep (phase 8)", "snake_backward": "training (phase 13)",
                "same_conv": "bf16 codec (phase 9)", "k1conv": "SNAC bf16 main path (phase 16)",
@@ -1279,6 +1288,80 @@ def check_dwconv(dev) -> dict:
                 bound_by="bytes", library_ms=tot["lib"])
 
 
+def check_outconv(dev) -> dict:
+    """The output conv kernel at the decoders' last conv of the four
+    roundtrip cells, each at its cell's 16-clip batch: the float32 codec's
+    (48 channels, k 7, SAME, float32 x), codec24k's and SNAC 44 kHz's
+    bfloat16 ones (48 and 96 channels, k 7, SAME) and Mimi's (64 channels,
+    k 3, causal): the op's first call must launch the kernel once; every
+    output within (C k + 1) 2^-23 (sum |w x| + |bias|) of the float64 sum
+    (twice the worst-case error of a float32 sum of C k + 1 terms in any
+    order), and within that bar of its plain version (the chain it
+    replaces: ``x.float()``, ``F.pad``, cuDNN's float32 conv); two runs bit
+    for bit; device ms of the op (and, as ``event_ms``, by CUDA events over
+    50 back-to-back launches: the profiler's window can read below the
+    bound at Mimi's shape), of its plain version and of cuDNN's float32
+    ``F.conv1d`` of ``x.float()`` (a yardstick, padded inside the conv at
+    SAME), and the bound: x read and the float32 output written once at
+    3.35 TB/s.  -> the float32 codec's record (the
+    main path's), with codec24k's, SNAC's and Mimi's under ``"codec24k"``,
+    ``"snac44k"`` and ``"mimi"``."""
+    from nawc_tpu_torch.ops import outconv as oc
+    from nawc_tpu_torch.ops.conv import conv1d
+
+    F = torch.nn.functional
+    tails = {"f32": (torch.float32, 48, 7, 3, 98_304), "codec24k": (torch.bfloat16, 48, 7, 3, 98_304),
+             "snac44k": (torch.bfloat16, 96, 7, 3, 184_320), "mimi": (torch.bfloat16, 64, 3, 2, 720_000)}
+    recs = {}
+    for i, (what, (dtype, c, k, left, t)) in enumerate(tails.items()):
+        gen = torch.Generator(device=dev).manual_seed(160 + i)
+        x = torch.randn((BATCH, c, t), generator=gen, device=dev).to(dtype)
+        w = torch.randn((1, c, k), generator=gen, device=dev) / (c * k) ** 0.5
+        b = torch.randn((1,), generator=gen, device=dev) * 0.1
+        pads = (left, k - 1 - left)
+        name = f"outconv {what}: {str(dtype)[6:]} {c}->1 k{k} pads {pads} T {t}"
+
+        def op():  # the widened conv op: the kernel, or the plain chain under plain_versions
+            return conv1d(x, w, b, 1, lambda n: pads, 1, 1, widen=True)
+
+        with torch.no_grad():
+            before = oc._KERNEL.launches
+            got = op()
+            check(oc._KERNEL.launches == before + 1, f"{name}: the op did not launch the kernel once")
+            with _lib.plain_versions():
+                want = op()
+            xd = F.pad(x.double(), pads)
+            acc = F.conv1d(xd, w.double(), b.double())
+            bar = (F.conv1d(xd.abs(), w.double().abs()) + abs(float(b))) * ((c * k + 1) * 2.0**-23)
+            del xd
+            off = (got.double() - acc).abs()
+            past, err = int((off > bar).sum()), float(off.max())
+            plain_err = float((want.double() - acc).abs().max())
+            gap = (got - want).abs()
+            past_plain, vs_plain = int((gap.double() > bar).sum()), float(gap.max())
+            del acc, bar, off, want, gap
+            check(torch.equal(got, op()), f"{name}: two runs differ")
+            ms = device_ms_retried(op)
+            event_ms = wall_ms(op, iters=50)
+            with _lib.plain_versions():
+                plain_ms = device_ms_retried(op)
+            if pads[0] == pads[1]:
+                lib_ms = device_ms_retried(lambda: F.conv1d(x.float(), w, b, 1, left))
+            else:
+                lib_ms = device_ms_retried(lambda: F.conv1d(F.pad(x.float(), pads), w, b))
+        check(past == 0, f"{name}: {past} outputs off the float64 sum past their bar")
+        check(past_plain == 0, f"{name}: {past_plain} outputs off the plain chain's past the bar")
+        bound_ms = oc.bound_bytes(BATCH, c, t, k, x.element_size()) / PEAK_BYTES_PER_S * 1e3
+        print(f"{name}: device {ms:.4f} ms (CUDA events {event_ms:.4f}), plain chain {plain_ms:.4f}, cuDNN "
+              f"F.conv1d with its cast {lib_ms:.4f}, bound {bound_ms:.4f} ({100 * bound_ms / ms:.1f}%, by "
+              f"events {100 * bound_ms / event_ms:.1f}%); {err:.3g} off the float64 sum (plain {plain_err:.3g}), "
+              f"{vs_plain:.3g} off plain")
+        recs[what] = dict(max_abs_err=vs_plain, ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes", library_ms=lib_ms, max_err_float64=err)
+        del x, got
+    return dict(recs.pop("f32"), **recs)
+
+
 # ------------------------------------------------------------------ phase 8
 
 DISCRETE = ("bitwise/", "hard/", "survived", "detector_works")
@@ -1948,7 +2031,8 @@ def training_phase(dev, codec, tree: dict, sizes: dict | None = None,
         cli_runs(Path(d), cli_args or {})
     out["launches"] = {n: k.launches for n, k in _lib.KERNELS.items()}
     print(f"launches in the trainers' kernel steps: {out['launches']}")
-    for n in ("nearest_codebook", "jaxrand", "snake", "snake_backward"):
+    # outconv: the decoder's last conv with a gradient (the codec and GAN trainers)
+    for n in ("nearest_codebook", "jaxrand", "snake", "snake_backward", "outconv"):
         check(out["launches"][n] > 0, f"training: {n} was not launched")
     return out
 
@@ -2437,6 +2521,7 @@ def snac_phase(dev, n_clips: int = BATCH, seconds: float = SECONDS, seed: int = 
           f"one SNAC bf16 call launched same_conv {launches['same_conv']} times, not 0")
     check(launches["k1conv"] == 29,
           f"one SNAC bf16 call took the k1 GEMM path {launches['k1conv']} times, not 29")
+    check(launches["outconv"] == 1, f"one SNAC bf16 call launched outconv {launches['outconv']} times, not 1")
     check(all(bool(torch.isfinite(o.float()).all()) for o in outs), "the SNAC bf16 call is not finite")
     ms = wall_ms(lambda: fn(wav, msg), iters=5, warmup=1)
     print(f"SNAC 44 kHz bf16 entry: {ms:.2f} ms a call ({n_clips * seconds / (ms / 1e3):.1f} s of audio a s)")
@@ -2479,6 +2564,7 @@ def mimi_phase(dev, n_clips: int = BATCH, seconds: float = 30.0, seed: int = 29)
           f"one Mimi bf16 call launched same_conv {launches['same_conv']} times, not 10")
     check(launches["k1conv"] == 8, f"one Mimi bf16 call took the k1 GEMM path {launches['k1conv']} times, not 8")
     check(launches["dwconv"] == 0, f"one Mimi bf16 call launched dwconv {launches['dwconv']} times, not 0")
+    check(launches["outconv"] == 1, f"one Mimi bf16 call launched outconv {launches['outconv']} times, not 1")
     check(all(bool(torch.isfinite(o.float()).all()) for o in outs), "the Mimi bf16 call is not finite")
     ms = wall_ms(lambda: fn(wav, msg), iters=5, warmup=1)
     print(f"Mimi bf16 entry: {ms:.2f} ms a call ({n_clips * seconds / (ms / 1e3):.1f} s of audio a s)")
@@ -2517,6 +2603,7 @@ def main() -> int:
         sass = check_snake_build(text, log)
         check_clean_build("same_conv", log)
         check_clean_build("dwconv", log)
+        check_clean_build("outconv", log)
 
     with phase("2 kernels vs plain"):
         rec = {
@@ -2529,6 +2616,7 @@ def main() -> int:
             **check_snake(dev, sass),
             **check_same_conv(dev),
             "dwconv": check_dwconv(dev),
+            "outconv": check_outconv(dev),
         }
 
     with phase("3 weights"):
@@ -2676,6 +2764,8 @@ def main() -> int:
               f"one bf16 encode and decode launched same_conv {bf16_launches['same_conv']} times, not 26")
         check(bf16_launches["k1conv"] == 24,
               f"one bf16 encode and decode took the k1 GEMM path {bf16_launches['k1conv']} times, not 24")
+        check(bf16_launches["outconv"] == 2,
+              f"one float32 and one bf16 decode launched outconv {bf16_launches['outconv']} times, not 2")
         del codec16
 
     with phase("10 codec-latent watermarks"):
@@ -2715,7 +2805,9 @@ def main() -> int:
              "snake_backward": ("snake.cu", "nawc_tpu/codec/layers.py:42"),
              "same_conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
              "k1conv": ("same_conv.cu", "none: XLA's convolutions of nawc_tpu/codec/layers.py"),
-             "dwconv": ("dwconv.cu", "none: the JAX package has no depthwise convolution")}
+             "dwconv": ("dwconv.cu", "none: the JAX package has no depthwise convolution"),
+             "outconv": ("outconv.cu", "none: XLA's float32 convolution of nawc_tpu/codec/model.py's "
+                                       "Decoder Conv_1")}
     on = {"sweep (phase 8)": sweep_launches, "training (phase 13)": train["launches"],
           "bf16 codec (phase 9)": bf16_launches, "SNAC bf16 main path (phase 16)": snac["launches"],
           "Mimi bf16 main path (phase 17)": mimi["launches"]}
@@ -2731,7 +2823,8 @@ def main() -> int:
             "launches": on[where][n] if where in on else launches[n],
             "launches_on": where,
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], **({"event_ms": r["event_ms"]} if "event_ms" in r else {}),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "main_launches": launches[n],
             "sweep_launches": sweep_launches[n],

@@ -56,11 +56,17 @@ class SameConv1d(nn.Conv1d):
     and 2; they agree at even strides).  A depthwise conv (``groups`` equal
     to the channels, SNAC's) at stride 1 is padded d (k - 1) / 2 on both
     sides inside the conv, in a span ``codec.dwconv`` of its own; a k 1 conv
-    of one group at stride 1 runs in a span ``codec.k1conv``."""
+    of one group at stride 1 runs in a span ``codec.k1conv``.
 
-    def __init__(self, *args, snac: bool = False, **kwargs):
+    ``widen=True`` (the decoders' last conv, C channels to one) computes the
+    conv of its input widened exactly to float32, in float32 whatever the
+    codec's compute type, and returns it float32 (it takes no residual), in
+    a span ``codec.outconv``."""
+
+    def __init__(self, *args, snac: bool = False, widen: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self.snac = snac
+        self.widen = widen
 
     def pads(self, t: int) -> tuple[int, int]:
         """(left, right) zero padding of a length-`t` input."""
@@ -73,6 +79,9 @@ class SameConv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        if self.widen:
+            with profiling.annotate("codec.outconv", x.device):
+                return conv1d(x, self.weight, self.bias, s, self.pads, d, self.groups, residual, widen=True)
         if self.groups > 1 and self.groups == self.in_channels == self.out_channels and s == 1:
             with profiling.annotate("codec.dwconv", x.device):
                 return conv1d(x, self.weight, self.bias, 1, d * (k - 1) // 2, d, self.groups, residual)

@@ -26,8 +26,9 @@ Precision follows the bfloat16 codec: convs, ELU, LayerScale and the
 transformer's products in ``cfg.compute_dtype``; LayerNorm statistics,
 RoPE products and softmax in float32; the RVQ and the decoder's last conv
 in float32.  In bfloat16 the stride-1 k3/k7 convs take
-``csrc/same_conv.cu``'s stencil at their causal padding and the residual
-k1 convs its GEMM path (``ops/conv.py``).
+``csrc/same_conv.cu``'s stencil at their causal padding, the residual k1
+convs its GEMM path, and the last conv ``csrc/outconv.cu``, which reads the
+bfloat16 activation in place (``ops/conv.py``).
 
 Departures, none of which changes a shape: weight norm and the codebooks'
 EMA buffers are folded into plain weights; RoPE rotates halves
@@ -153,14 +154,14 @@ class SeanetDecoder(nn.Module):
         for i, rate in enumerate(cfg.decoder_rates):
             self.add_module(f"Block_{i}", DecoderBlock(dim, rate))
             dim //= 2
-        self.Conv_1 = CausalConv1d(dim, 1, 3)
+        self.Conv_1 = CausalConv1d(dim, 1, 3, widen=True)
         self.n_blocks = len(cfg.decoder_rates)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.Conv_0(x)
         for i in range(self.n_blocks):
             h = getattr(self, f"Block_{i}")(h)
-        return self.Conv_1(F.elu(h).float())[:, 0]
+        return self.Conv_1(F.elu(h))[:, 0]
 
 
 def window_mask(t: int, context: int, device) -> torch.Tensor:

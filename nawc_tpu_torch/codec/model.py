@@ -16,8 +16,9 @@ The encoder and decoder compute in ``cfg.compute_dtype`` as the JAX modules
 do: a bfloat16 codec casts the waveform (encoder) or the latent (decoder) to
 bfloat16 and runs every conv and Snake in it; the latent comes out float32,
 and the decoder's last conv and ``tanh`` run in float32 (flax promotes that
-conv, which has no ``dtype``, to its float32 kernel).  The residual VQ is
-float32 in both.
+conv, which has no ``dtype``, to its float32 kernel; on the card
+``csrc/outconv.cu`` computes it from the bfloat16 activation in place).  The
+residual VQ is float32 in both.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class Decoder(nn.Module):
                                          noise=self.noise))
             dim //= 2
         self.Snake_0 = Snake(dim)
-        self.Conv_1 = SameConv1d(dim, 1, 7)
+        self.Conv_1 = SameConv1d(dim, 1, 7, widen=True)
         self.n_blocks = len(cfg.decoder_rates)
         self.dtype = cfg.compute_torch_dtype
 
@@ -108,7 +109,7 @@ class Decoder(nn.Module):
                 h = self.LocalMHA_0(h)
             for i in range(self.n_blocks):
                 h = getattr(self, f"DecoderBlock_{i}")(h)
-            h = self.Conv_1(self.Snake_0(h).float())
+            h = self.Conv_1(self.Snake_0(h))
             return torch.tanh(h)[:, 0]
 
 

@@ -14,9 +14,11 @@ convolution module's inputs, and then profiles each module alone on them
 and bias kernels.  Where a ``ResidualUnit`` adds ``x + y`` outside its
 convolutions, that add is profiled as a layer of its own.  Prints the
 device ms per call of each layer kind by kernel, each depthwise layer's
-share of its byte bound (``ops.dwconv.bound_bytes`` at 3.35 TB/s) and,
+share of its byte bound (``ops.dwconv.bound_bytes`` at 3.35 TB/s),
 in bfloat16, each k = 1 layer's share of its bound (``ops.same_conv.bound_counts``:
-bytes at 3.35 TB/s or operations at 989 TFLOP/s, the larger), and with
+bytes at 3.35 TB/s or operations at 989 TFLOP/s, the larger), and the
+decoder's last conv's share of its byte bound (``ops.outconv.bound_bytes``:
+x read once, the float32 output written once, at 3.35 TB/s), and with
 ``--out`` writes every layer's row as JSON.  Runs on a CUDA device only.
 """
 
@@ -35,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..codec.api import MODELS
 from ..codec.layers import ResidualUnit, SameConv1d, SameConvTranspose1d
 from ..codec.mimi import CausalConvTranspose1d
-from ..ops import dwconv, same_conv
+from ..ops import dwconv, outconv, same_conv
 from ..utils.config import CodecConfig
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -204,6 +206,9 @@ def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dic
                 res = kwargs.get("residual") is not None
                 nbytes, flops = same_conv.bound_counts(b, c, mod.out_channels, t, 1, res)
                 rows[-1].update(k1=True, bound_ms=max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3)
+            elif isinstance(mod, SameConv1d) and mod.widen:
+                nbytes = outconv.bound_bytes(b, c, t, mod.kernel_size[0], args[0].element_size())
+                rows[-1].update(outconv=True, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
         for path, x, y in adds:
             ms = _device_ms(lambda: x + y)
             rows.append(dict(layer=path + ".add", kind=f"RU x + y {x.shape[1]}", shape=list(x.shape),
@@ -214,7 +219,7 @@ def layer_rows(dtype: str, batch: int = 16, codec: str = "codec24k") -> list[dic
 def family(kernel: str) -> str:
     n = kernel.lower()
     for key, name in (("same_conv", "same_conv (ours)"), ("k1conv", "same_conv k1 (ours)"),
-                      ("dwconv", "dwconv (ours)"),
+                      ("dwconv", "dwconv (ours)"), ("outconv", "outconv (ours)"),
                       ("conv_depthwise", "ATen depthwise"),
                       ("implicit_convolve_sgemm", "implicit_convolve_sgemm"),
                       ("nchwtonhwc", "transposes"), ("nhwctonchw", "transposes"),
@@ -254,8 +259,9 @@ def main(argv=None) -> int:
               + ", ".join(f"{f} {v:.3f}" for f, v in sorted(fams.items(), key=lambda kv: -kv[1])))
     print(f"  all layers: {sum(total.values()):.3f} ms: "
           + ", ".join(f"{f} {v:.3f}" for f, v in sorted(total.items(), key=lambda kv: -kv[1])))
-    for name, mine in (("depthwise", [r for r in rows if "bound_ms" in r and not r.get("k1")]),
-                       ("k = 1", [r for r in rows if r.get("k1")])):
+    for name, mine in (("depthwise", [r for r in rows if r["kind"].startswith("depthwise")]),
+                       ("k = 1", [r for r in rows if r.get("k1")]),
+                       ("output conv", [r for r in rows if r.get("outconv")])):
         if not mine:
             continue
         print(f"  {name} layers, furthest from their bound first: {len(mine)} layers, "

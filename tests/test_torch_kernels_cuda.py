@@ -940,3 +940,147 @@ def test_snac_codec_launches_the_kernel_twenty_six_times(dev):
     rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
     assert rel(z, z_p) < 0.05 and rel(y, y_p) < 0.05, (rel(z, z_p), rel(y, y_p))
 
+
+
+# ---------------------------------------------------------------- the output conv
+
+# the four roundtrip cells' tails: (x's type, C, k, left pad, the cell's T)
+_OUT_TAILS = {"codec24k bf16": (torch.bfloat16, 48, 7, 3, 98_304), "snac44k bf16": (torch.bfloat16, 96, 7, 3, 184_320),
+              "mimi bf16": (torch.bfloat16, 64, 3, 2, 720_000), "codec24k f32": (torch.float32, 48, 7, 3, 98_304)}
+
+
+def _out_ops():
+    from nawc_tpu_torch.ops import outconv as oc
+
+    return oc
+
+
+def _out_op(x, w, bias, left):
+    """The widened conv op at `left` zeros on the left and k - 1 - `left`
+    on the right: on the card the kernel."""
+    k = w.shape[-1]
+    return conv1d(x, w, bias, 1, lambda t: (left, k - 1 - left), 1, 1, widen=True)
+
+
+@pytest.mark.parametrize("length", ["the cell's T", "T 4000", "T 8"])
+@pytest.mark.parametrize("tail", list(_OUT_TAILS))
+def test_outconv_is_the_float64_sum_within_a_float32_bound(dev, tail, length):
+    """Each tail at the full batch of 16, at the cell's T, at a T that is
+    not a multiple of a block's 1,984 outputs, and at one unit of 8: every
+    output within (C k + 1) 2^-23 (sum |w x| + |bias|) of the float64 sum
+    (twice the worst-case error of a float32 sum of C k + 1 terms in any
+    order); two runs bit for bit; one launch each, none of cuDNN."""
+    oc = _out_ops()
+    dtype, c, k, left, t_cell = _OUT_TAILS[tail]
+    t = {"the cell's T": t_cell, "T 4000": 4000, "T 8": 8}[length]
+    gen = torch.Generator(device=dev).manual_seed(c + k + t)
+    x = torch.randn((16, c, t), generator=gen, device=dev).to(dtype)
+    w = torch.randn((1, c, k), generator=gen, device=dev) / (c * k) ** 0.5
+    bias = torch.randn(1, generator=gen, device=dev) * 0.1
+    n = oc._KERNEL.launches
+    with torch.no_grad():
+        got = _out_op(x, w, bias, left)
+        again = _out_op(x, w, bias, left)
+    torch.cuda.synchronize()
+    assert oc._KERNEL.launches == n + 2
+    assert got.dtype == torch.float32 and got.shape == (16, 1, t) and torch.equal(got, again)
+    pads = (left, k - 1 - left)
+    xd = torch.nn.functional.pad(x.double(), pads)
+    acc = torch.nn.functional.conv1d(xd, w.double(), bias.double())
+    bar = (torch.nn.functional.conv1d(xd.abs(), w.double().abs()) + abs(float(bias))) * ((c * k + 1) * 2.0**-23)
+    del xd
+    off = (got.double() - acc).abs()
+    assert bool((off <= bar).all()), f"{float((off - bar).max())} past the bar"
+
+
+@pytest.mark.parametrize("case", ["T 4001", "x at an offset"])
+def test_outconv_leaves_the_rest_to_the_float32_route(dev, case):
+    """A T that is not a multiple of 8, or an x not 16-byte aligned, takes
+    the old chain on the card: no launch, the plain version's result."""
+    oc = _out_ops()
+    t, offset = (4001, 0) if case == "T 4001" else (4000, 1)
+    buf = torch.randn(2 * 48 * t + offset, device=dev).to(torch.bfloat16)
+    x = buf[offset:].view(2, 48, t)
+    w = torch.randn(1, 48, 7, device=dev) / 18
+    n = oc._KERNEL.launches
+    with torch.no_grad():
+        got = _out_op(x, w, None, 3)
+        with _lib.plain_versions():
+            want = _out_op(x, w, None, 3)
+    assert oc._KERNEL.launches == n and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tail", list(_OUT_TAILS))
+def test_outconv_gradient_is_autograd_of_the_chain(dev, tail):
+    """With a gradient wanted the kernel runs too (one launch); its output
+    the no-gradient launch's bit for bit, and dx (in x's type), dw and db
+    autograd of the plain chain's, by the same cuDNN backward: within 1e-5
+    of the largest value in float32, one bfloat16 ulp of it in bfloat16
+    (cuDNN may pick a weight-gradient algorithm that sums the B T products
+    in another order from one call to the next)."""
+    oc = _out_ops()
+    dtype, c, k, left, _ = _OUT_TAILS[tail]
+    gen = torch.Generator(device=dev).manual_seed(c + k)
+    x = torch.randn((4, c, 4000), generator=gen, device=dev).to(dtype)
+    w = torch.randn((1, c, k), generator=gen, device=dev) / (c * k) ** 0.5
+    bias = torch.randn(1, generator=gen, device=dev) * 0.1
+    g = torch.randn((4, 1, 4000), generator=gen, device=dev)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        y = _out_op(*leaves, left)
+        return y.detach(), torch.autograd.grad(y, leaves, g)
+
+    n = oc._KERNEL.launches
+    y, got = grads()
+    assert oc._KERNEL.launches == n + 1
+    with torch.no_grad():
+        assert torch.equal(y, _out_op(x, w, bias, left))
+    with _lib.plain_versions():
+        _, want = grads()
+    assert oc._KERNEL.launches == n + 2
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32]
+    for a, b in zip(got, want):
+        ulp = 2.0**-7 if a.dtype == torch.bfloat16 else 1e-5
+        assert float((a.float() - b.float()).abs().max()) <= ulp * float(b.float().abs().max())
+
+
+def test_outconv_without_a_bias_adds_nothing(dev):
+    """No bias: the sum alone, the bias's add left out."""
+    x = torch.randn(2, 64, 1000, device=dev).to(torch.bfloat16)
+    w = torch.randn(1, 64, 3, device=dev) / 14
+    zero = torch.zeros(1, device=dev)
+    assert torch.equal(_out_op(x, w, None, 2), _out_op(x, w, zero, 2))
+
+
+@pytest.mark.parametrize("layout", ["codec24k", "snac44k", "mimi"])
+def test_one_decode_launches_outconv_once(dev, layout):
+    """The bfloat16 decoder of each layout, at small widths, launches the
+    kernel once a decode (none in the encoder); the waveform within 1e-5 of
+    the plain chain's on the same activation (the kernel moves the float32
+    summation order alone)."""
+    from test_torch_outconv import SMALL_CODECS
+
+    from nawc_tpu_torch.codec import mimi
+    from nawc_tpu_torch.codec.model import SnacCodec
+
+    oc = _out_ops()
+    widths, make, samples = SMALL_CODECS[layout]
+    cfg = make(**widths, compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    model = (mimi.MimiCodec(cfg) if cfg.layout == "mimi" else SnacCodec(cfg)).to(dev).eval()
+    conv = model.decoder.seanet.Conv_1 if cfg.layout == "mimi" else model.decoder.Conv_1
+    seen = []
+    conv.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    wav = torch.randn(2, samples, device=dev) * 0.1
+    with torch.no_grad():
+        n = oc._KERNEL.launches
+        z = model.encoder(wav)
+        assert oc._KERNEL.launches == n
+        y = model.decoder(z)
+        assert oc._KERNEL.launches == n + 1 and seen[0].dtype == torch.bfloat16
+        with _lib.plain_versions():
+            want = conv(seen[0])[:, 0]
+    assert oc._KERNEL.launches == n + 1
+    want = want if cfg.layout == "mimi" else torch.tanh(want)
+    assert float((y - want).abs().max()) <= 1e-5

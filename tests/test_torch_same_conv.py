@@ -319,8 +319,12 @@ def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
 def stubbed_card(monkeypatch):
     """``ops.conv.conv1d`` on the card's route with both C entries of
     ``csrc/same_conv.cu`` stubbed: -> the list of (entry, args) they were
-    called with.  The entries' launch counting runs as on the card."""
+    called with.  The entries' launch counting runs as on the card; the
+    process's counts are put back after the test, so that no other test of
+    the worker sees a launch."""
     calls = []
+    for entry in (sc._KERNEL, sc._K1):
+        monkeypatch.setitem(profiling._REC.totals, entry.counter, profiling.total(entry.counter))
     monkeypatch.setattr(_lib, "use_kernel", lambda x: True)
     monkeypatch.setattr(sc, "_check", lambda *a: None)
     monkeypatch.setattr(_lib, "stream", lambda t: ctypes.c_void_p(0))
